@@ -26,6 +26,9 @@ PORT_MODULES = [
     "wildcat_slam_tpu_torch.odometry.corrections", "wildcat_slam_tpu_torch.odometry.match",
     "wildcat_slam_tpu_torch.odometry.factors", "wildcat_slam_tpu_torch.odometry.solver",
     "wildcat_slam_tpu_torch.odometry.pipeline", "wildcat_slam_tpu_torch.odometry.convert",
+    "wildcat_slam_tpu_torch.odometry.checkpoint", "wildcat_slam_tpu_torch.ops.se3",
+    "wildcat_slam_tpu_torch.io.stream", "wildcat_slam_tpu_torch.io.rosbag",
+    "wildcat_slam_tpu_torch.utils.histogram",
 ]
 
 
@@ -96,12 +99,14 @@ def test_chip_smoke_fails_alone(tmp_path):
     assert '"ok": true' not in _last_line(res.stdout)
 
 
-@pytest.mark.parametrize("flag", ["--batch", "--stream", "--checkpoint-out", "--resume"])
+@pytest.mark.parametrize("flag", ["--batch", "--chunk-sweeps", "--native", "--viewer-port",
+                                  "--snapshot-every", "--surfels-out", "--cloud-out", "--profile"])
 def test_cli_rejects_unported_modes(flag):
     from wildcat_slam_tpu_torch import cli
 
+    value = [] if flag == "--native" else ["2"]
     with pytest.raises(NotImplementedError, match=flag):
-        cli.main(["--synthetic", "1", "--device", "cpu", flag, "x"])
+        cli.main(["--synthetic", "1", "--device", "cpu", flag, *value])
 
 
 def test_cuda_tensor_without_card_is_refused():
@@ -113,3 +118,6 @@ def test_cuda_tensor_without_card_is_refused():
         pcg.pcg_solve(meta, meta[0], torch.zeros((2, 12, 12), device="meta"), meta[0], 4, 1e-2)
     with pytest.raises(ValueError, match="device"):
         knn.knn_bins(torch.zeros((4, 6), device="meta"), torch.zeros((512, 6), device="meta"), 512)
+    with pytest.raises(ValueError, match="device"):
+        knn.knn_bins_mxu(torch.zeros((4, 8), device="meta"), torch.zeros((8, 512), device="meta"),
+                         512)

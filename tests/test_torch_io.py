@@ -1,27 +1,39 @@
 """The port's numpy-only modules against the JAX package's originals.
 
-``wildcat_slam_tpu_torch.config``, ``.io`` and ``.odometry._ptbuf`` are copies
-so that the port imports nothing of the JAX package; these tests hold each
-copy to its original: equal config fields and checks, bit-equal synthetic
-sequences and ATE, the same point-buffer output, and datasets and
-trajectory files that the JAX package reads back.
+``wildcat_slam_tpu_torch.config``, ``.io``, ``.utils.histogram``,
+``.odometry._ptbuf`` and the host ``ImuResampler`` are copies so that the
+port imports nothing of the JAX package; these tests hold each copy to its
+original: equal config fields and checks, bit-equal synthetic sequences and
+ATE, the same point-buffer output and checkpoint dumps, the same resampler
+state, datasets and trajectory files that the JAX package reads back, framed
+streams and ROS bags that each package reads from the other, and the same
+residual histograms.
 """
 
 import dataclasses
+import io
 
 import numpy as np
 import pytest
 
 from wildcat_slam_tpu import config as jcfg
 from wildcat_slam_tpu.io import dataset as jds
+from wildcat_slam_tpu.io import rosbag as jbag
+from wildcat_slam_tpu.io import stream as jstream
 from wildcat_slam_tpu.io import synthetic as jsyn
 from wildcat_slam_tpu.io import trajectory as jtraj
 from wildcat_slam_tpu.odometry import _ptbuf as jbuf
+from wildcat_slam_tpu.odometry.imu import ImuResampler as JaxResampler
+from wildcat_slam_tpu.utils import histogram as jhist
 from wildcat_slam_tpu_torch import config as tcfg
 from wildcat_slam_tpu_torch.io import dataset as tds
+from wildcat_slam_tpu_torch.io import rosbag as tbag
+from wildcat_slam_tpu_torch.io import stream as tstream
 from wildcat_slam_tpu_torch.io import synthetic as tsyn
 from wildcat_slam_tpu_torch.io import trajectory as ttraj
 from wildcat_slam_tpu_torch.odometry import _ptbuf as tbuf
+from wildcat_slam_tpu_torch.odometry.imu import ImuResampler
+from wildcat_slam_tpu_torch.utils import histogram as thist
 
 
 def test_config_fields_and_defaults_match_jax():
@@ -94,3 +106,92 @@ def test_dataset_and_trajectory_files_cross_read(tmp_path):
     assert (tmp_path / "t.tum").read_text() == (tmp_path / "j.tum").read_text()
     for a, b in zip(jtraj.load_tum(str(tmp_path / "t.tum")), traj):
         assert a[0] == b[0] and np.allclose(a[1], b[1]) and np.allclose(a[2], b[2])
+
+
+def _same_events(a, b):
+    assert len(a) == len(b) > 0
+    for x, y in zip(a, b):
+        assert x[0] == y[0] and all(np.array_equal(u, v) for u, v in zip(x[1:], y[1:]))
+
+
+def test_point_buffer_dump_restore_matches_jax():
+    seq = jsyn.SyntheticSequence(duration=0.3, points_per_scan=400, room_half=4.0, seed=5)
+    bufs = [jbuf.ChunkedPointBuffer(jcfg.WildcatConfig()),
+            tbuf.ChunkedPointBuffer(tcfg.WildcatConfig())]
+    for ts, pts in seq.scans:
+        for b in bufs:
+            b.add_points(ts, pts.astype(np.float32))
+    (jt, jx), (tt, tx) = (b.dump() for b in bufs)
+    assert np.array_equal(jt, tt) and np.array_equal(jx, tx) and len(tt) == len(bufs[1])
+    fresh = tbuf.ChunkedPointBuffer(tcfg.WildcatConfig())
+    fresh.restore(jt, jx)
+    assert len(fresh) == len(bufs[0]) and fresh.front_time == bufs[0].front_time
+    assert fresh.count_until(0.2) == bufs[0].count_until(0.2)
+
+
+def test_resampler_state_matches_jax():
+    rng = np.random.default_rng(3)
+    raw = [(0.0013 + 0.0031 * i, rng.normal(size=3), rng.normal(size=3)) for i in range(40)]
+    j, t = JaxResampler(200.0), ImuResampler(200.0)
+    assert np.array_equal(j.get_state(), t.get_state())
+    for r in raw[:25]:
+        j.add(*r)
+        t.add(*r)
+    assert np.array_equal(j.get_state(), t.get_state())
+    t2 = ImuResampler(200.0)
+    t2.set_state(j.get_state())  # a JAX resampler's state resumes in the port
+    for r in raw[25:]:
+        a, b = j.add(*r), t2.add(*r)
+        assert len(a) == len(b)
+        assert all(x[0] == y[0] and np.array_equal(x[1], y[1]) for x, y in zip(a, b))
+
+
+def test_stream_copy_matches_jax():
+    blobs = []
+    for mod in (jstream, tstream):
+        buf = io.BytesIO()
+        mod.stream_synthetic(buf, duration=0.3, points_per_scan=200, seed=3, realtime=False)
+        blobs.append(buf.getvalue())
+    assert blobs[0] == blobs[1]
+    evs_t = list(tstream.read_stream(io.BytesIO(blobs[0])))
+    _same_events(evs_t, list(jstream.read_stream(io.BytesIO(blobs[0]))))
+    for bad in (blobs[0][:-20], b"XXXX" + blobs[0][4:]):  # truncated payload, bad magic
+        errs = []
+        for mod in (jstream, tstream):
+            with pytest.raises((EOFError, ValueError)) as e:
+                list(mod.read_stream(io.BytesIO(bad)))
+            errs.append(type(e.value))
+        assert errs[0] == errs[1]
+    readers = [mod.BoundedQueueReader(io.BytesIO(blobs[0]), imu_queue=7, scan_queue=1)
+               for mod in (jstream, tstream)]
+    for r in readers:
+        r.join(30)
+    got = [list(r) for r in readers]
+    _same_events(got[1], got[0])
+    assert readers[0].dropped == readers[1].dropped and readers[1].dropped["imu"] > 0
+
+
+def test_rosbag_copy_matches_jax(tmp_path):
+    rng = np.random.default_rng(8)
+    evs = [("imu", 1000.0 + i * 0.005, rng.normal(size=3), rng.normal(size=3)) for i in range(30)]
+    for k in range(3):
+        times = 1000.0 + k * 0.06 + rng.uniform(0, 0.05, 50)  # unsorted: the reader sorts
+        evs.append(("scan", times, rng.normal(size=(50, 3)) * 5))
+    paths = [str(tmp_path / "j.bag"), str(tmp_path / "t.bag")]
+    jbag.write_bag(paths[0], evs)
+    tbag.write_bag(paths[1], evs)
+    assert open(paths[0], "rb").read() == open(paths[1], "rb").read()
+    _same_events(list(tbag.read_bag(paths[0])), list(jbag.read_bag(paths[0])))
+    _same_events(list(tbag.read_bag(paths[0], lidar_topic="/none")),
+                 list(jbag.read_bag(paths[0], lidar_topic="/none")))
+    counts = tbag.convert_bag(paths[0], str(tmp_path / "seq"))
+    assert counts == {"imu": 30, "scans": 3}
+    assert len(list(jds.Dataset(str(tmp_path / "seq")))) == 33
+
+
+def test_histogram_copy_matches_jax():
+    rng = np.random.default_rng(2)
+    v = np.concatenate([rng.normal(size=500), [np.nan, np.inf]])
+    assert thist.residual_report("surfel", v) == jhist.residual_report("surfel", v)
+    for vals in (np.zeros(0), np.ones(4)):
+        assert str(thist.Histogram().add(vals)) == str(jhist.Histogram().add(vals))

@@ -7,7 +7,12 @@ without them:
     python -m pytest -m gpu --noconftest -p no:cacheprovider tests/test_torch_kernels.py
 
 Tolerances: K2 (knn_bins) rounds exactly like its plain version (no FMA,
-same dimension order), so values and indices must be equal. K1 (pcg_solve)
+same dimension order), so values and indices must be equal. K2 mxu
+(knn_bins_mxu) takes its product as three TF32 passes on the tensor cores
+where the plain version takes one f32 product: per (query, bin) the minima
+must agree within MXU_FACTOR * 2^-23 * (|q| + |t|)^2 at the winning targets,
+and the indices may differ only where the two winners' scores lie within
+that bound of each other. K1 (pcg_solve)
 sums the matvec in another order than cuBLAS, and CG amplifies that over 24
 iterations: within 1e-5 of the solution's scale; two kernel runs must give
 the same bits (no float atomics).
@@ -23,6 +28,8 @@ from wildcat_slam_tpu_torch.odometry.pipeline import LidarOdometry
 from wildcat_slam_tpu_torch.ops import knn, pcg
 
 pytestmark = pytest.mark.gpu
+
+MXU_FACTOR = 16.0  # chip_smoke.py MXU_FACTOR
 
 
 @pytest.fixture
@@ -59,6 +66,47 @@ def test_knn_bins_kernel_equals_plain(cuda_device, q_n, t_n):
     assert torch.equal(vk, vp) and torch.equal(ik, ip)
 
 
+def mxu_check(dq, dt, n_bins):
+    """knn_bins_mxu against knn_bins_mxu_plain on the embedding of (dq, dt).
+    Returns (worst value gap in units of 2^-23 (|q| + |t|)^2, index
+    mismatches, of them outside the near-tie bound)."""
+    dq_aug, dtt_aug = knn.mxu_embedding(dq, dt)
+    vk, ik = knn.knn_bins_mxu(dq_aug, dtt_aug, n_bins)
+    vp, ip = knn.knn_bins_mxu_plain(dq_aug, dtt_aug, n_bins)
+    qn = torch.linalg.norm(dq.double(), dim=1, keepdim=True)
+    tn = torch.linalg.norm(dt.double(), dim=1)
+    scale = torch.maximum((qn + tn[ik.long()]) ** 2, (qn + tn[ip.long()]) ** 2) * 2.0**-23
+    ratio = float(torch.max((vk.double() - vp.double()).abs() / scale))
+    diff = ik != ip
+    # exact scores of both winners where the indices differ
+    rows = torch.nonzero(diff)[:, 0]
+    sk = torch.sum((dq[rows].double() - dt[ik[diff].long()].double()) ** 2, 1)
+    sp = torch.sum((dq[rows].double() - dt[ip[diff].long()].double()) ** 2, 1)
+    far = int(torch.sum((sk - sp).abs() > MXU_FACTOR * scale[diff]))
+    return ratio, int(diff.sum()), far
+
+
+@pytest.mark.parametrize("q_n,t_n", [(300, 512), (1000, 4096), (777, 3000)])
+def test_knn_mxu_kernel_matches_plain(cuda_device, q_n, t_n):
+    rng = np.random.default_rng(t_n)
+    dt = torch.as_tensor(_cloud(rng, t_n), device=cuda_device)
+    dt[t_n // 3:t_n // 3 + 200] = knn.FAR  # masked rows never win against real ones
+    dq = torch.as_tensor(_cloud(rng, q_n), device=cuda_device)
+    pad = (-t_n) % 512  # T not a multiple of the bins: far-padded as knn_topk does
+    dt = torch.cat([dt, torch.full((pad, 6), knn.FAR, device=cuda_device)])
+    before = knn.MXU_LAUNCHES
+    ratio, mismatch, far = mxu_check(dq, dt, 512)
+    assert knn.MXU_LAUNCHES == before + 1
+    print(f"mxu q={q_n} t={t_n}: worst gap {ratio:.3f} x 2^-23 (|q|+|t|)^2, "
+          f"{mismatch} index mismatches, {far} outside the near-tie bound")
+    assert ratio <= MXU_FACTOR and far == 0
+    kk, _ = knn.knn_topk(dq, dt[:t_n], 10, mode="mxu")
+    kv, _ = knn.knn_topk(dq, dt[:t_n], 10)
+    assert not bool(torch.any((kk >= t_n // 3) & (kk < t_n // 3 + 200)))  # masked never chosen
+    agree = float(torch.mean((kk[:, :, None] == kv[:, None, :]).any(2).double()))
+    assert agree >= 0.995, agree
+
+
 @pytest.mark.parametrize("s_cap", [8, 96, 256])
 def test_pcg_kernel_matches_plain(cuda_device, s_cap):
     h, g = _random_system(s_cap, seed=s_cap)
@@ -74,6 +122,14 @@ def test_pcg_kernel_matches_plain(cuda_device, s_cap):
     assert float(torch.max(torch.abs(x1 - xp))) <= 1e-5 * float(torch.max(torch.abs(xp)))
     zero = pcg.pcg_solve(th, dlam, minv, torch.zeros_like(tg), 24, 1e-2)
     assert torch.equal(zero, torch.zeros_like(tg))  # early exit before any iteration
+
+
+def test_float64_pcg_refused_on_the_card(cuda_device):
+    """K1 takes float32: a float64 config with linear_solver='pcg' (a JAX
+    package checkpoint may carry one) is refused when the frontend is built."""
+    with pytest.raises(ValueError, match="K1"):
+        LidarOdometry(WildcatConfig(dtype="float64"), device=cuda_device)
+    LidarOdometry(WildcatConfig(dtype="float64", linear_solver="pcg_xla"), device=cuda_device)
 
 
 def test_pcg_kernel_refuses_what_it_cannot_hold(cuda_device):

@@ -8,6 +8,15 @@
   CUDA kernel (separate multiply and add), and the two agree bit for bit on
   the card (chip_smoke.py).
 - ``knn_topk`` equals ``knn_topk_fused`` (the same bins + exact top-k).
+- mxu scoring: ``knn_bins_mxu_plain`` against ``_knn_bins(mode="mxu")`` in
+  interpret mode on the same augmented embedding, and ``knn_topk(mode="mxu")``
+  against ``knn_topk_fused(mode="mxu")``. Both sides take f32 dot products of
+  the embedding in different summation orders, so per (query, bin) the
+  values agree within MXU_FACTOR * 2^-23 * (|q| + |t|)^2 at the winning
+  targets (the bound chip_smoke.py holds the tensor-core kernel to), and an
+  index may differ only where the two winners' exact squared distances lie
+  within that bound. mxu and vpu top-10 sets agree on >= 99.5% of the
+  candidates, as ``tests/test_knn_pallas.py`` asks of the JAX kernel.
 - The exact path (``approx=False``) gives the same pair sets as
   ``match_surfels(approx=False)``, after validity masking.
 """
@@ -23,6 +32,8 @@ from wildcat_slam_tpu_torch.odometry.match import match_surfels as t_match
 from wildcat_slam_tpu_torch.ops import knn
 
 torch.set_num_threads(1)
+
+MXU_FACTOR = 16.0  # chip_smoke.py MXU_FACTOR
 
 
 def _cloud(rng, n, spread=5.0):
@@ -62,9 +73,61 @@ def test_knn_topk_matches_fused(t_n):
     assert _ulps(d2.numpy(), np.asarray(dj)) <= 4
 
 
-def test_mxu_mode_rejected():
-    with pytest.raises(NotImplementedError, match="mxu"):
-        knn.knn_topk(torch.zeros(4, 6), torch.zeros(8, 6), 2, mode="mxu")
+def _mxu_gaps(dq, dt, vals, idx, vals_ref, idx_ref):
+    """(worst value gap in units of 2^-23 (|q| + |t|)^2, index mismatches
+    whose two winners are not within the bound of each other)."""
+    dq, dt = dq.astype(np.float64), dt.astype(np.float64)
+    qn = np.linalg.norm(dq, axis=1)[:, None]
+    tn = np.linalg.norm(dt, axis=1)
+    scale = np.maximum((qn + tn[idx]) ** 2, (qn + tn[idx_ref]) ** 2) * 2.0**-23
+    ratio = np.max(np.abs(vals.astype(np.float64) - vals_ref) / scale)
+    rows, cols = np.nonzero(idx != idx_ref)
+    s1 = np.sum((dq[rows] - dt[idx[rows, cols]]) ** 2, 1)
+    s2 = np.sum((dq[rows] - dt[idx_ref[rows, cols]]) ** 2, 1)
+    return ratio, int(np.sum(np.abs(s1 - s2) > MXU_FACTOR * scale[rows, cols]))
+
+
+def test_knn_bins_mxu_plain_matches_pallas_mxu():
+    rng = np.random.default_rng(1)
+    dt = _cloud(rng, 2048)
+    dt[1500:] = knn.FAR
+    dq = np.concatenate([dt[:128], _cloud(rng, 128)])
+    dq_aug, dtt_aug = knn.mxu_embedding(torch.as_tensor(dq), torch.as_tensor(dt))
+    vj, ij = _knn_bins(jnp.asarray(dq_aug.numpy()), jnp.asarray(dtt_aug.numpy()), mode="mxu",
+                       n_dims=6, n_bins=512, block_q=128, chunk_t=1024, interpret=True)
+    vt, it = knn.knn_bins_mxu_plain(dq_aug, dtt_aug, 512)
+    ratio, far = _mxu_gaps(dq, dt, vt.numpy(), it.numpy(), np.asarray(vj), np.asarray(ij))
+    assert ratio <= MXU_FACTOR and far == 0, (ratio, far)
+    assert np.mean(it.numpy() == np.asarray(ij)) > 0.999
+    # the wrapper takes the plain version for CPU tensors
+    vw, iw = knn.knn_bins_mxu(dq_aug, dtt_aug, 512)
+    assert torch.equal(vw, vt) and torch.equal(iw, it)
+
+
+@pytest.mark.parametrize("t_n", [300, 1000, 2048])  # one bin each, padded, exact fit
+def test_knn_topk_mxu_matches_fused(t_n):
+    rng = np.random.default_rng(t_n + 1)
+    dt = _cloud(rng, t_n)
+    dq = _cloud(rng, 64)
+    kj, dj = knn_topk_fused(jnp.asarray(dq), jnp.asarray(dt), 10, mode="mxu", interpret=True)
+    kt, d2 = knn.knn_topk(torch.as_tensor(dq), torch.as_tensor(dt), 10, mode="mxu")
+    ratio, far = _mxu_gaps(dq, dt, d2.numpy(), kt.numpy(), np.asarray(dj), np.asarray(kj))
+    assert ratio <= MXU_FACTOR and far == 0, (ratio, far)
+
+
+def test_mxu_vpu_modes_agree():
+    rng = np.random.default_rng(5)
+    dq = _cloud(rng, 128)
+    dt = _cloud(rng, 700)
+    a, da = knn.knn_topk(torch.as_tensor(dq), torch.as_tensor(dt), 10, n_bins=256, mode="mxu")
+    b, db = knn.knn_topk(torch.as_tensor(dq), torch.as_tensor(dt), 10, n_bins=256)
+    agree = np.mean([len(set(x) & set(y)) / 10.0 for x, y in zip(a.numpy(), b.numpy())])
+    assert agree >= 0.995, agree
+    np.testing.assert_allclose(da.numpy(), db.numpy(), rtol=1e-3, atol=1e-2)
+    with pytest.raises(ValueError, match="mode"):
+        knn.knn_topk(torch.as_tensor(dq), torch.as_tensor(dt), 10, mode="gram")
+    with pytest.raises(ValueError, match="D <= 7"):  # the kernel's one depth-8 step
+        knn.mxu_embedding(torch.zeros((4, 8)), torch.zeros((4, 8)))
 
 
 def _surfels(rng, n, base=None):

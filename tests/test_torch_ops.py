@@ -14,11 +14,13 @@ import jax.numpy as jnp
 from wildcat_slam_tpu.ops import dfsum as jdf
 from wildcat_slam_tpu.ops import eigh3 as jeig
 from wildcat_slam_tpu.ops import lie as jlie
+from wildcat_slam_tpu.ops import se3 as jse3
 from wildcat_slam_tpu.ops import spline as jsp
 from wildcat_slam_tpu.ops import voxel as jvox
 from wildcat_slam_tpu_torch.ops import dfsum as tdf
 from wildcat_slam_tpu_torch.ops import eigh3 as teig
 from wildcat_slam_tpu_torch.ops import lie as tlie
+from wildcat_slam_tpu_torch.ops import se3 as tse3
 from wildcat_slam_tpu_torch.ops import spline as tsp
 from wildcat_slam_tpu_torch.ops import voxel as tvox
 
@@ -186,3 +188,27 @@ def test_voxel_keys_and_segments():
         np.testing.assert_array_equal(
             tvox.segment_start_positions(st, it, cap).numpy(),
             np.asarray(jvox.segment_start_positions(sj, ij, cap)))
+
+
+@pytest.mark.parametrize("dt", list(DTYPES))
+def test_rigid3(dt):
+    npd, td = DTYPES[dt]
+    rng = np.random.default_rng(11)
+    qa, qb = _quats(rng, 8).astype(npd), _quats(rng, 8).astype(npd)
+    ta, tb = rng.normal(size=(8, 3)).astype(npd), rng.normal(size=(8, 3)).astype(npd)
+    pts = rng.normal(size=(8, 3)).astype(npd)
+    ja, jb = jse3.Rigid3(jnp.asarray(qa), jnp.asarray(ta)), jse3.Rigid3(jnp.asarray(qb), jnp.asarray(tb))
+    ta_, tb_ = (tse3.Rigid3(torch.as_tensor(q), torch.as_tensor(t)) for q, t in ((qa, ta), (qb, tb)))
+    for got, ref in ((ta_ * tb_, ja * jb), (ta_.inverse(), ja.inverse())):
+        _close(got.q.numpy(), ref.q, dt)
+        _close(got.t.numpy(), ref.t, dt)
+    _close(ta_.apply(torch.as_tensor(pts)).numpy(), ja.apply(jnp.asarray(pts)), dt)
+    _close(ta_.matrix().numpy(), ja.matrix(), dt)
+    m = ta_.matrix()
+    _close(tse3.Rigid3.from_matrix(m, torch.as_tensor(ta)).q.numpy(),
+           jse3.Rigid3.from_matrix(jnp.asarray(m.numpy()), jnp.asarray(ta)).q, dt)
+    ident = tse3.Rigid3.identity((2,), td)
+    assert torch.equal(ident.apply(torch.ones(2, 3, dtype=td)), torch.ones(2, 3, dtype=td))
+    _close(tse3.Rigid3.rotation(torch.as_tensor(qa)).t.numpy(), np.zeros((8, 3)), dt)
+    _close(tse3.Rigid3.translation(torch.as_tensor(ta)).q.numpy(),
+           jse3.Rigid3.translation(jnp.asarray(ta)).q, dt)

@@ -7,6 +7,8 @@
     version): ATE < 0.02 m unaligned against exact ground truth.
 (c) The port's trajectory against the JAX trajectory on the same run
     (float64, exact KNN) within 1e-6 m / 1e-6 on the quaternion.
+(d) ``degeneracy_remap=True`` on the healthy room: the same trajectory as
+    remap off, bit for bit (the projectors are exact zeros there).
 
 (a) and (c) use a 0.5 s sliding window so that surfels migrate to the fixed
 window inside the 1.6 s sequence and the fixed-window match runs.
@@ -20,6 +22,7 @@ import torch
 
 from wildcat_slam_tpu.config import WildcatConfig as JaxConfig
 from wildcat_slam_tpu.odometry.pipeline import LidarOdometry as JaxOdometry
+from wildcat_slam_tpu_torch.cli import feed_events, synthetic_events
 from wildcat_slam_tpu_torch.config import WildcatConfig
 from wildcat_slam_tpu_torch.io.synthetic import SyntheticSequence, ate_rmse
 from wildcat_slam_tpu_torch.odometry.convert import (window_state_from_numpy,
@@ -46,13 +49,7 @@ def _seq():
 
 
 def _feed(lo, seq):
-    imu_iter = iter(seq.imu)
-    pending = next(imu_iter, None)
-    for ts, pl in seq.scans:
-        while pending is not None and pending[0] <= ts[-1] + 0.01:
-            lo.add_imu(*pending)
-            pending = next(imu_iter, None)
-        lo.add_scan(ts, pl)
+    feed_events(lo, synthetic_events(seq))
     return lo
 
 
@@ -96,7 +93,8 @@ def test_one_sweep_state_matches_jax(jax_run):
     state = window_state_from_numpy(state_np, "cpu", torch.float64)
     targs = [torch.as_tensor(np.asarray(a).astype(np.int64) if np.asarray(a).dtype == np.int32
                              else np.asarray(a)) for a in args]
-    new_state, packed = process_sweep(state, *targs, PARITY_CFG)
+    new_state, out = process_sweep(state, *targs, PARITY_CFG)
+    packed = out["packed"]
     got = window_state_to_numpy(new_state)
     assert set(got) == set(ref)
     for key in sorted(ref):
@@ -133,9 +131,15 @@ def test_short_sequence_ate_f32_bins():
     assert all(s["n_new_surfels"] > 50 for s in lo.stats)
 
 
+def test_remap_inert_on_the_room():
+    seq = _seq()
+    off = _feed(LidarOdometry(_small_cfg(), device="cpu"), seq)
+    on = _feed(LidarOdometry(_small_cfg(degeneracy_remap=True), device="cpu"), seq)
+    assert len(on.trajectory) == len(off.trajectory) >= 3
+    for (t1, p1, q1), (t2, p2, q2) in zip(off.trajectory, on.trajectory):
+        assert t1 == t2 and np.array_equal(p1, p2) and np.array_equal(q1, q2)
+
+
 def test_unported_options_rejected():
-    for kw in (dict(degeneracy_remap=True), dict(debug_residuals=True)):
-        with pytest.raises(NotImplementedError):
-            LidarOdometry(_small_cfg(**kw), device="cpu")
     with pytest.raises(NotImplementedError, match="chunk_sweeps"):
         LidarOdometry(_small_cfg(), device="cpu", chunk_sweeps=3)

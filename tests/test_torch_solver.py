@@ -8,6 +8,10 @@
 - The preconditioner helpers within 1e-10 in float64.
 - One ``solve_window`` in float64 against JAX's, for each linear solver:
   corrections within 1e-8, the same LM iteration count.
+- Degeneracy remapping in float64: ``degeneracy_projectors`` within 1e-10,
+  ``solve_window(remap_proj=...)`` within 1e-8 (summation order only), and
+  zero projectors leave the solve bit for bit unchanged.
+- ``residual_snapshot`` in float64 within 1e-10.
 """
 
 import numpy as np
@@ -18,10 +22,12 @@ import jax.numpy as jnp
 from wildcat_slam_tpu.odometry import factors as jf
 from wildcat_slam_tpu.odometry import states as jst
 from wildcat_slam_tpu.odometry.solver import _pcg_solve as j_pcg_xla
+from wildcat_slam_tpu.odometry.solver import residual_snapshot as j_snapshot
 from wildcat_slam_tpu.odometry.solver import solve_window as j_solve
 from wildcat_slam_tpu.ops import pcg_pallas
 from wildcat_slam_tpu_torch.odometry import factors as tf
 from wildcat_slam_tpu_torch.odometry import states as tst
+from wildcat_slam_tpu_torch.odometry.solver import residual_snapshot as t_snapshot
 from wildcat_slam_tpu_torch.odometry.solver import solve_window as t_solve
 from wildcat_slam_tpu_torch.ops import pcg
 
@@ -134,23 +140,69 @@ def _build(pkg_st, pkg_f, conv, imu, sample, sld, fix, pairs):
     return s, b, u, ifac
 
 
-@pytest.mark.parametrize("linear_solver", ["pcg", "pcg_xla", "cholesky"])
-def test_solve_window_matches_jax(linear_solver):
+WEIGHTS = (3.0, 2.0, 40.0, 500.0)
+SOLVE_KW = dict(cauchy_scale=0.4, max_iterations=25, init_lambda=1e-4, function_tolerance=1e-3,
+                linear_solver="pcg_xla", pcg_iters=24, pcg_tol=1e-2, n_binary=48)
+
+
+@pytest.fixture(scope="module")
+def problem():
     import jax
 
     pieces = _problem()
     js, jb, ju, jif = _build(jst, jf, jnp.asarray, *pieces)
     ts, tb, tu, tif = _build(tst, tf, torch.as_tensor, *pieces)
     jsf = jax.tree_util.tree_map(lambda a, b: jnp.concatenate([a, b], 0), jb, ju)
-    tsf = tst.concat(tb, tu)
-    weights = (3.0, 2.0, 40.0, 500.0)
-    kw = dict(cauchy_scale=0.4, max_iterations=25, init_lambda=1e-4, function_tolerance=1e-3,
-              linear_solver=linear_solver, pcg_iters=24, pcg_tol=1e-2, n_binary=48)
-    jo, jstat = j_solve(js, jsf, jif, weights, 0.005, js.grav, jnp.asarray(True), **kw)
-    to, tstat = t_solve(ts, tsf, tif, weights, 0.005, ts.grav, torch.tensor(True), **kw)
+    return (js, jsf, jif), (ts, tst.concat(tb, tu), tif)
+
+
+@pytest.mark.parametrize("linear_solver", ["pcg", "pcg_xla", "cholesky"])
+def test_solve_window_matches_jax(problem, linear_solver):
+    (js, jsf, jif), (ts, tsf, tif) = problem
+    kw = dict(SOLVE_KW, linear_solver=linear_solver)
+    jo, jstat = j_solve(js, jsf, jif, WEIGHTS, 0.005, js.grav, jnp.asarray(True), **kw)
+    to, tstat = t_solve(ts, tsf, tif, WEIGHTS, 0.005, ts.grav, torch.tensor(True), **kw)
     assert int(tstat.iterations) == int(jstat.iterations) >= 2
     np.testing.assert_allclose(to.cor.numpy(), np.asarray(jo.cor), rtol=0, atol=1e-8)
     for name in ("initial_cost", "final_cost", "lambda_final"):
         np.testing.assert_allclose(float(getattr(tstat, name)), float(getattr(jstat, name)),
                                    rtol=1e-9)
     assert float(tstat.final_cost) < float(tstat.initial_cost)
+
+def test_degeneracy_remap_matches_jax(problem):
+    (js, jsf, jif), (ts, tsf, tif) = problem
+    ref_pos = np.array([0.1, -0.2, 0.05])
+    # a ratio this high marks the two weaker axes of each moment as weak,
+    # so both projectors are non-zero and the remap acts on the step
+    jw = jf.degeneracy_projectors(jsf, jnp.asarray(ref_pos), 0.9)
+    tw = tf.degeneracy_projectors(tsf, torch.as_tensor(ref_pos), 0.9)
+    for a, b in zip(tw, jw):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=0, atol=1e-10)
+    assert all(float(torch.sum(torch.abs(w))) > 0.5 for w in tw[:2])
+    for a, b in zip(tf.direction_coverage(tsf, torch.as_tensor(ref_pos)), tw[2:]):
+        assert float(a) == float(b)
+    jo, jstat = j_solve(js, jsf, jif, WEIGHTS, 0.005, js.grav, jnp.asarray(True),
+                        remap_proj=jw[:2], **SOLVE_KW)
+    to, tstat = t_solve(ts, tsf, tif, WEIGHTS, 0.005, ts.grav, torch.tensor(True),
+                        remap_proj=tw[:2], **SOLVE_KW)
+    assert int(tstat.iterations) == int(jstat.iterations)
+    np.testing.assert_allclose(to.cor.numpy(), np.asarray(jo.cor), rtol=0, atol=1e-8)
+    free, _ = t_solve(ts, tsf, tif, WEIGHTS, 0.005, ts.grav, torch.tensor(True), **SOLVE_KW)
+    assert float(torch.max(torch.abs(free.cor - to.cor))) > 1e-6  # the remap acted
+    zero = torch.zeros((3, 3), dtype=torch.float64)
+    inert, _ = t_solve(ts, tsf, tif, WEIGHTS, 0.005, ts.grav, torch.tensor(True),
+                       remap_proj=(zero, zero), **SOLVE_KW)
+    assert torch.equal(inert.cor, free.cor)
+
+
+def test_residual_snapshot_matches_jax(problem):
+    (js, jsf, jif), (ts, tsf, tif) = problem
+    rng = np.random.default_rng(9)
+    cor = rng.normal(scale=1e-3, size=tuple(ts.cor.shape))
+    jr = j_snapshot(js.replace(cor=jnp.asarray(cor)), jsf, jif, WEIGHTS, 0.005, js.grav)
+    tr = t_snapshot(ts.replace(cor=torch.as_tensor(cor)), tsf, tif, WEIGHTS, 0.005, ts.grav)
+    for a, b in zip(tr, jr):
+        if a.dtype == torch.bool:
+            np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+        else:
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=0, atol=1e-10)

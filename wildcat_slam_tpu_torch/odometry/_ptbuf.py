@@ -1,7 +1,7 @@
 """Chunked host point buffer.
 
-Counterpart of ``wildcat_slam_tpu/odometry/_ptbuf.py`` without its checkpoint
-``dump``/``restore`` (checkpoints are not ported).
+Counterpart of ``wildcat_slam_tpu/odometry/_ptbuf.py`` (numpy only; held equal
+to it by a test), with its checkpoint ``dump``/``restore``.
 
 Scans arrive ~10x per sweep; a flat-array buffer re-concatenates the whole
 backlog on every scan (O(buffered) per scan). This buffer keeps scans as a list of
@@ -97,3 +97,18 @@ class ChunkedPointBuffer:
         del self._t_chunks[:k], self._p_chunks[:k]
         self._n -= m
         return min(m, cap)
+
+    def dump(self):
+        if self._t_chunks:
+            return (
+                np.concatenate(self._t_chunks).copy(),
+                np.concatenate(self._p_chunks).copy(),
+            )
+        return np.zeros((0,), np.float64), np.zeros((0, 3), np.float64)
+
+    def restore(self, t: np.ndarray, xyz: np.ndarray) -> None:
+        t = np.asarray(t, np.float64)
+        if len(t):
+            self._t_chunks.append(t)
+            self._p_chunks.append(np.asarray(xyz, np.float64))
+            self._n += len(t)

@@ -4,8 +4,8 @@ Counterpart of ``wildcat_slam_tpu/odometry/factors.py``: the surfel match
 factors (unary + binary unified by scatter pairs) and the IMU triplet
 factors, with the same two corrected Jacobians as the JAX package (its module
 doc, items (a) and (b): no gyro/bias block for the second IMU time, and the
-first-time rotation block as the exact derivative of ``Exp(r)^-1``).
-``degeneracy_projectors`` is not ported yet (``degeneracy_remap`` is rejected).
+first-time rotation block as the exact derivative of ``Exp(r)^-1``), and the
+degeneracy health signal with its weak-subspace projectors.
 """
 
 from __future__ import annotations
@@ -132,21 +132,49 @@ def build_surfel_factors(sq: Surfels, st_: Surfels, iq, it, pair_valid,
         v2=vq_, p2=pq_, i2l=iql, i2r=iqr, f2=fq)
 
 
-def direction_coverage(fac: SurfelFactors, ref_pos: torch.Tensor):
-    """Degeneracy health signal: scale-free eigenvalue ratios lambda_min /
-    lambda_max of the weighted translation and rotation constraint moments
-    (see the JAX package's docstring). Returns (trans_ratio, rot_ratio)."""
+def _coverage_mats(fac: SurfelFactors, ref_pos: torch.Tensor):
+    """The weighted second-moment matrices (D_t, D_r) of the constraint
+    directions: D_t = sum w^2 n n^T, D_r = sum w^2 c c^T with
+    c = (x - ref_pos) x n (see the JAX package's ``direction_coverage``)."""
     dtype = fac.n.dtype
     w2 = torch.where(fac.valid, fac.w * fac.w, 0.0).to(dtype)
     dt_mat = torch.einsum("m,mi,mj->ij", w2, fac.n, fac.n)
     c = lie.cross((fac.v2 + fac.p2) - ref_pos[None, :].to(dtype), fac.n)
     dr_mat = torch.einsum("m,mi,mj->ij", w2, c, c)
+    return dt_mat, dr_mat
+
+
+def direction_coverage(fac: SurfelFactors, ref_pos: torch.Tensor):
+    """Degeneracy health signal: scale-free eigenvalue ratios lambda_min /
+    lambda_max of the weighted translation and rotation constraint moments
+    (see the JAX package's docstring). Returns (trans_ratio, rot_ratio)."""
+    tiny = torch.finfo(fac.n.dtype).tiny
 
     def ratio(d):
         vals, _ = eigh3(d)
-        return torch.clamp(vals[0], min=0.0) / torch.clamp(vals[2], min=torch.finfo(dtype).tiny)
+        return torch.clamp(vals[0], min=0.0) / torch.clamp(vals[2], min=tiny)
 
-    return ratio(dt_mat), ratio(dr_mat)
+    return tuple(ratio(d) for d in _coverage_mats(fac, ref_pos))
+
+
+def degeneracy_projectors(fac: SurfelFactors, ref_pos: torch.Tensor, remap_ratio: float):
+    """Weak-subspace projectors for degeneracy solution remapping (Zhang &
+    Singh ICRA'16 section V, adapted to the joint solve; see the JAX
+    package's docstring). Returns ``(W_t, W_r, trans_ratio, rot_ratio)``:
+    3x3 projectors ``W = sum_{k weak} v_k v_k^T`` over the eigenvectors whose
+    eigenvalue is below ``remap_ratio * lambda_max``, and the ratios of
+    :func:`direction_coverage`. On a healthy scene both W are exact zeros, so
+    the remapped step equals the unremapped one bit for bit."""
+    tiny = torch.finfo(fac.n.dtype).tiny
+
+    def proj(d):
+        vals, vecs = eigh3(d)
+        ratio = torch.clamp(vals[0], min=0.0) / torch.clamp(vals[2], min=tiny)
+        weak = (vals < remap_ratio * vals[2]).to(d.dtype)
+        return torch.einsum("k,ik,jk->ij", weak, vecs, vecs), ratio
+
+    (w_t, r_t), (w_r, r_r) = (proj(d) for d in _coverage_mats(fac, ref_pos))
+    return w_t, w_r, r_t, r_r
 
 
 def interp_weights(fac: SurfelFactors, s_cap: int, dtype):

@@ -54,6 +54,27 @@ class ImuResampler:
         self._prev = (float(t), acc, gyr)
         return out
 
+    def get_state(self) -> np.ndarray:
+        """Serializable state (checkpoint support): 11 doubles, the layout of
+        the JAX package's numpy and native (native/feeder.cc) resamplers, so a
+        checkpoint written with either restores here."""
+        out = np.zeros(11, np.float64)
+        if self._t0 is not None:
+            out[0] = 1.0
+            out[1] = self._grid_k
+            out[2] = self._t0
+            out[3], out[4:7], out[7:10] = self._prev[0], self._prev[1], self._prev[2]
+        return out
+
+    def set_state(self, st: np.ndarray) -> None:
+        st = np.asarray(st, np.float64)
+        if st[0] != 0.0:
+            self._grid_k = int(st[1])
+            self._t0 = float(st[2])
+            self._prev = (float(st[3]), st[4:7].copy(), st[7:10].copy())
+        else:
+            self._grid_k, self._t0, self._prev = 0, None, None
+
 
 def put_rows(buf: torch.Tensor, vals: torch.Tensor, start: torch.Tensor) -> torch.Tensor:
     """Write ``vals`` into rows [start, start + len) of a copy of ``buf``. The

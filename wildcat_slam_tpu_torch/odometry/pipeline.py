@@ -11,9 +11,8 @@ The JAX version donates the state to its jitted step. Here every step builds
 new tensors for the fields it changes and returns a new ``WindowState``; the
 old one is dropped by the caller, so nothing is updated in place.
 
-Not ported yet, and rejected with ``NotImplementedError``:
-``degeneracy_remap``, ``debug_residuals``, ``chunk_sweeps > 1``
-(``process_sweeps_chained``), the native feeder, cloud collection.
+Not ported yet: ``chunk_sweeps > 1`` (``process_sweeps_chained``, rejected
+with ``NotImplementedError``), the native feeder, cloud collection.
 """
 
 from __future__ import annotations
@@ -34,10 +33,16 @@ from wildcat_slam_tpu_torch.odometry import imu as imu_mod
 from wildcat_slam_tpu_torch.odometry import window as win_mod
 from wildcat_slam_tpu_torch.odometry._ptbuf import ChunkedPointBuffer
 from wildcat_slam_tpu_torch.odometry.match import match_surfels
-from wildcat_slam_tpu_torch.odometry.solver import solve_window
+from wildcat_slam_tpu_torch.odometry.solver import residual_snapshot, solve_window
 from wildcat_slam_tpu_torch.odometry.states import (ImuStates, SampleStates, Surfels,
                                                     TensorStruct, concat)
 from wildcat_slam_tpu_torch.odometry.surfel import extract_surfels
+
+
+class OutOfOrderError(ValueError):
+    """A sensor message broke the time order that add_imu/add_scan require.
+    The message is refused before any state changes, so a caller may drop it
+    and go on (the CLI's drop-and-count policy)."""
 
 
 @dataclasses.dataclass
@@ -79,8 +84,11 @@ def init_window(state: WindowState, imu_t, imu_acc, imu_gyr, cfg: WildcatConfig)
 def process_sweep(state: WindowState, imu_t, imu_acc, imu_gyr, imu_n, sample_t, sample_n,
                   pts, pts_t, pts_n, n_sample_drop, n_imu_drop, fix_first_pos,
                   cfg: WildcatConfig):
-    """One full sweep step on the device. Returns (state, packed) with packed
-    the (22,) float32 per-sweep outputs (layout as in the JAX package)."""
+    """One full sweep step on the device. Returns (state, outputs): outputs
+    holds "packed", the (22,) float32 per-sweep outputs (layout as in the JAX
+    package), and with ``cfg.debug_residuals`` the post- and pre-solve
+    residual snapshots "residuals" and "residuals_pre" of the last outer
+    iteration (``solver.residual_snapshot``)."""
     sample, imu = state.sample, state.imu
     dtype = sample.pos.dtype
     dev = sample.pos.device
@@ -122,13 +130,23 @@ def process_sweep(state: WindowState, imu_t, imu_acc, imu_gyr, imu_n, sample_t, 
             fmod.build_surfel_factors(sld, fix, iq_f, it_f, pv_f, sample, cfg.surfel_sigma_floor,
                                       target_optimized=False, sq_pack=sld_pack, st_pack=fix_pack))
         ifac = fmod.build_imu_factors(imu, sample, max_factors=cfg.max_imu_states)
-        deg_t, deg_r = fmod.direction_coverage(sfac, pred_pos)
+        if cfg.degeneracy_remap:
+            w_t, w_r, deg_t, deg_r = fmod.degeneracy_projectors(
+                sfac, pred_pos, cfg.degeneracy_remap_ratio)
+            remap_proj = (w_t, w_r)
+        else:
+            deg_t, deg_r = fmod.direction_coverage(sfac, pred_pos)
+            remap_proj = None
+        if cfg.debug_residuals:
+            res_pre = residual_snapshot(sample, sfac, ifac, weights, cfg.imu_dt, sample.grav)
         sample, sstats = solve_window(
             sample, sfac, ifac, weights, cfg.imu_dt, sample.grav, fix_first_pos,
             cauchy_scale=cfg.cauchy_loss_scale, max_iterations=cfg.inner_iter_num_max,
             init_lambda=cfg.gn_initial_lambda, function_tolerance=cfg.gn_function_tolerance,
             linear_solver=cfg.linear_solver, pcg_iters=cfg.pcg_iters, pcg_tol=cfg.pcg_tol,
-            n_binary=cfg.max_correspondences)
+            n_binary=cfg.max_correspondences, remap_proj=remap_proj)
+        if cfg.debug_residuals:
+            res_post = residual_snapshot(sample, sfac, ifac, weights, cfg.imu_dt, sample.grav)
         stats = [sstats.iterations, sstats.initial_cost, sstats.final_cost,
                  new_surfels.count, torch.sum(pv_s.to(torch.int64)),
                  torch.sum(pv_f.to(torch.int64))]
@@ -156,7 +174,10 @@ def process_sweep(state: WindowState, imu_t, imu_acc, imu_gyr, imu_n, sample_t, 
     f32 = lambda v: torch.as_tensor(v, device=dev).to(torch.float32).reshape(-1)
     packed = torch.cat([f32(sample2.pos[pose_idx]), f32(sample2.rot[pose_idx]), f32(shift)]
                        + [f32(v) for v in stats] + [f32(pred_pos)] + [f32(v) for v in tail])
-    return state.replace(sample=sample2, imu=imu2, sld=sld, fix=fix, fix_geo=fix_geo), packed
+    outputs = dict(packed=packed)
+    if cfg.debug_residuals:
+        outputs.update(residuals=res_post, residuals_pre=res_pre)
+    return state.replace(sample=sample2, imu=imu2, sld=sld, fix=fix, fix_geo=fix_geo), outputs
 
 
 class LidarOdometry:
@@ -170,18 +191,20 @@ class LidarOdometry:
     """
 
     def __init__(self, cfg: WildcatConfig = WildcatConfig(), *, device, chunk_sweeps: int = 1):
-        for flag, what in ((cfg.degeneracy_remap, "degeneracy_remap=True"),
-                           (cfg.debug_residuals, "debug_residuals=True"),
-                           (chunk_sweeps != 1, "chunk_sweeps > 1")):
-            if flag:
-                raise NotImplementedError(
-                    f"{what} is not ported to wildcat_slam_tpu_torch yet (ROADMAP.md); "
-                    "use the JAX package wildcat_slam_tpu for it")
+        if chunk_sweeps != 1:
+            raise NotImplementedError(
+                "chunk_sweeps > 1 is not ported to wildcat_slam_tpu_torch yet (ROADMAP.md); "
+                "use the JAX package wildcat_slam_tpu for it")
         _numerics.apply()
         self.cfg = cfg
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("device='cuda' requested but torch.cuda.is_available() is False")
+        if self.device.type == "cuda" and cfg.dtype != "float32" and cfg.linear_solver == "pcg":
+            raise ValueError(
+                f"dtype={cfg.dtype!r} with linear_solver='pcg' cannot run on the card: kernel K1 "
+                "(csrc/pcg.cu) takes float32; use dtype='float32', or linear_solver='pcg_xla' "
+                "or 'cholesky' for float64 there")
         self.dtype = torch.float32 if cfg.dtype == "float32" else torch.float64
         self._np_dtype = np.float32 if cfg.dtype == "float32" else np.float64
         self.state = WindowState.empty(cfg, self.dtype, self.device)
@@ -203,10 +226,18 @@ class LidarOdometry:
         # its syncs), fetch (the packed outputs' copy to the host)
         self.timing = {"prep": 0.0, "step": 0.0, "fetch": 0.0, "sweeps": 0}
         self.sweep_seconds: List[float] = []
+        # with cfg.debug_residuals: per sweep the valid surfel residuals (M,)
+        # and IMU residuals (Mi, 12) after ("surfel", "imu") and before
+        # ("surfel_pre", "imu_pre") the solve, as numpy arrays
+        self.residuals: List[dict] = []
 
     @property
     def trajectory(self) -> List[tuple]:
         return self._trajectory
+
+    @trajectory.setter
+    def trajectory(self, value) -> None:  # checkpoint restore
+        self._trajectory = list(value)
 
     @property
     def stats(self) -> List[dict]:
@@ -215,7 +246,7 @@ class LidarOdometry:
     def add_imu(self, t: float, acc, gyr):
         """One raw IMU message (time-ordered)."""
         if self._last_raw_imu_t is not None and t < self._last_raw_imu_t:
-            raise ValueError(
+            raise OutOfOrderError(
                 f"IMU sample at {t:.6f} arrived before the previous raw sample "
                 f"{self._last_raw_imu_t:.6f}; IMU messages must be time-ordered")
         self._last_raw_imu_t = float(t)
@@ -228,9 +259,9 @@ class LidarOdometry:
         times = np.ascontiguousarray(times, np.float64)
         if len(times):
             if np.any(np.diff(times) < 0):
-                raise ValueError("point times within a scan must be non-decreasing")
+                raise OutOfOrderError("point times within a scan must be non-decreasing")
             if len(self.points) and times[0] < self.points.back_time:
-                raise ValueError(
+                raise OutOfOrderError(
                     f"scan starts at {times[0]:.6f} before the buffered tail "
                     f"{self.points.back_time:.6f}; scans must arrive in time order")
         self.points.add_points(times, np.ascontiguousarray(points_lidar, np.float32))
@@ -290,9 +321,11 @@ class LidarOdometry:
         prep = self._prepare_feed()
         args = self._to_device(prep["args"])
         tm1 = time.perf_counter()
-        self.state, packed = process_sweep(self.state, *args, self.cfg)
+        self.state, out = process_sweep(self.state, *args, self.cfg)
         tm2 = time.perf_counter()
-        self._commit(packed.cpu(), prep["back"], prep["host_stats"])  # one D2H copy per sweep
+        self._commit(out["packed"].cpu(), prep["back"], prep["host_stats"])  # one D2H copy per sweep
+        if "residuals" in out:
+            self.residuals.append(_residual_entry(out["residuals"], out["residuals_pre"]))
         tm3 = time.perf_counter()
         self.timing["prep"] += tm1 - tm0
         self.timing["step"] += tm2 - tm1
@@ -402,6 +435,16 @@ class LidarOdometry:
             deg_trans_ratio=v[19], deg_rot_ratio=v[20], lm_lambda_final=v[21],
             degenerate=bool(warn > 0 and min(v[19], v[20]) < warn), **host_stats))
         self.sweep_id += 1
+
+
+def _residual_entry(post, pre) -> dict:
+    """Host copies of the valid residuals of one sweep's snapshots."""
+    def valid(r, v):
+        return r.detach().cpu().numpy()[v.cpu().numpy()]
+
+    (rs, rsv, ri, riv), (ps, psv, pi, piv) = post, pre
+    return dict(surfel=valid(rs, rsv), imu=valid(ri, riv),
+                surfel_pre=valid(ps, psv), imu_pre=valid(pi, piv))
 
 
 def _voxel_decimate_indices(xyz: np.ndarray, cap: int, size0: float) -> np.ndarray:

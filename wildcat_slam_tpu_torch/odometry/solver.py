@@ -12,6 +12,11 @@ K1 on CUDA float32 tensors, runs its plain version on CPU tensors and raises
 otherwise; ``"pcg_xla"`` calls the plain version ``pcg_solve_plain`` directly
 (the role of the JAX package's portable ``_pcg_solve``); ``"cholesky"`` uses
 ``torch.linalg.cholesky``. Both PCGs fold the damping into the matvec.
+
+With ``remap_proj`` (degeneracy solution remapping) the common-mode mean of
+the per-state rotation and position steps is projected off the weak axes
+before the candidate's cost is evaluated; with both projectors zero the
+step is unchanged bit for bit.
 """
 
 from __future__ import annotations
@@ -111,9 +116,10 @@ def solve_window(sample: SampleStates, sfac, ifac, weights, dt: float, grav,
                  fix_first_pos, cauchy_scale: float = 0.4, max_iterations: int = 100,
                  init_lambda: float = 1e-4, function_tolerance: float = 1e-6,
                  linear_solver: str = "pcg", pcg_iters: int = 96, pcg_tol: float = 1e-6,
-                 n_binary: int | None = None):
-    """Optimize the correction state of the sliding window. Returns (sample
-    with updated cor, SolveStats)."""
+                 n_binary: int | None = None, remap_proj=None):
+    """Optimize the correction state of the sliding window. ``remap_proj`` is
+    None or the (W_t, W_r) projectors of ``factors.degeneracy_projectors``.
+    Returns (sample with updated cor, SolveStats)."""
     s_cap = sample.capacity
     n_par = s_cap * 12
     dtype = sample.cor.dtype
@@ -127,6 +133,19 @@ def solve_window(sample: SampleStates, sfac, ifac, weights, dt: float, grav,
     nb = sfac.valid.shape[0] if n_binary is None else n_binary
     w_interp = fmod.interp_weights(sfac, s_cap, dtype)
     tiny = torch.finfo(dtype).tiny
+
+    def remap_step(delta):
+        if remap_proj is None:
+            return delta
+        w_t, w_r = remap_proj
+        smask = (torch.arange(s_cap, device=dev) < sample.count).to(dtype)
+        s_count = torch.clamp(torch.sum(smask), min=1.0)
+        d2 = delta.reshape(s_cap, 12)
+        sub_rot = w_r @ (torch.einsum("s,si->i", smask, d2[:, 0:3]) / s_count)
+        sub_pos = w_t @ (torch.einsum("s,si->i", smask, d2[:, 3:6]) / s_count)
+        d2 = torch.cat([d2[:, 0:3] + (-smask[:, None] * sub_rot[None, :]),
+                        d2[:, 3:6] + (-smask[:, None] * sub_pos[None, :]), d2[:, 6:]], 1)
+        return d2.reshape(-1)
 
     def eval_cost(cor_flat):
         cor = cor_flat.reshape(s_cap, 12)
@@ -171,7 +190,7 @@ def solve_window(sample: SampleStates, sfac, ifac, weights, dt: float, grav,
     k = 0
     while k < max_iterations:
         d = torch.clip(torch.diagonal(h), 1e-6, 1e32)
-        delta = linear_solve(h, g, lam, d)
+        delta = remap_step(linear_solve(h, g, lam, d))
         new_flat = cor + delta
         new_cost = eval_cost(new_flat)
         pred = 0.5 * (torch.sum(delta * (lam * d * delta)) - torch.sum(delta * g))
@@ -193,3 +212,12 @@ def solve_window(sample: SampleStates, sfac, ifac, weights, dt: float, grav,
     out = sample.replace(cor=cor.reshape(s_cap, 12))
     return out, SolveStats(iterations=torch.tensor(k, device=dev), initial_cost=cost0,
                            final_cost=cost, lambda_final=lam)
+
+
+def residual_snapshot(sample: SampleStates, sfac, ifac, weights, dt: float, grav):
+    """Raw residuals for diagnostics (the reference's pre/post-solve residual
+    histograms): (surfel residuals (M,), their valid mask, IMU residuals
+    (Mi, 12), their valid mask)."""
+    rs, _, _ = fmod.surfel_residuals(sfac, sample.cor, with_jac=False)
+    ri, _, _ = fmod.imu_residuals(ifac, sample.cor, weights, dt, grav, with_jac=False)
+    return rs, sfac.valid, ri, ifac.valid

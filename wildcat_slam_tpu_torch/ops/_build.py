@@ -21,7 +21,7 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("pcg.cu", "knn_bins.cu")
+SOURCES = ("pcg.cu", "knn_bins.cu", "knn_mxu.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -78,6 +78,8 @@ def library() -> ctypes.CDLL:
         lib.wc_pcg_solve.restype = i32
         lib.wc_knn_bins.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32, vp]
         lib.wc_knn_bins.restype = i32
+        lib.wc_knn_mxu.argtypes = [vp, vp, vp, vp, i32, i32, i32, vp]
+        lib.wc_knn_mxu.restype = i32
         lib.wc_error_string.argtypes = [i32]
         lib.wc_error_string.restype = ctypes.c_char_p
         _lib = lib

@@ -32,6 +32,7 @@ import numpy as np
 import torch
 from torch.autograd import DeviceType
 
+from wildcat_slam_tpu_torch.cli import feed_events, synthetic_events
 from wildcat_slam_tpu_torch.config import WildcatConfig
 from wildcat_slam_tpu_torch.io.synthetic import SyntheticSequence
 from wildcat_slam_tpu_torch.odometry import corrections as cor_mod
@@ -58,15 +59,10 @@ SYNC_KEYS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchro
 def _run(seq, device, on_sweep=None) -> pipeline.LidarOdometry:
     """Feed the whole sequence; ``on_sweep(lo)`` runs before each scan."""
     lo = pipeline.LidarOdometry(WildcatConfig(), device=device)
-    imu_it = iter(seq.imu)
-    pending = next(imu_it, None)
-    for ts, pts in seq.scans:
-        while pending is not None and pending[0] <= ts[-1] + 0.01:
-            lo.add_imu(*pending)
-            pending = next(imu_it, None)
-        if on_sweep is not None:
+    for ev in synthetic_events(seq):
+        if ev[0] == "scan" and on_sweep is not None:
             on_sweep(lo)
-        lo.add_scan(ts, pts)
+        feed_events(lo, [ev])
     torch.cuda.synchronize()
     return lo
 
