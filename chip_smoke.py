@@ -6,11 +6,17 @@ Phases, one line each or more (any failure raises and the script exits
 non-zero):
   1. device  -- a CUDA card must be present (no CPU fallback); versions, and
                 the card's name and power limit from nvidia-smi;
-  2. build   -- compile the CUDA kernels from csrc/ with nvcc;
+  2. build   -- compile the CUDA kernels from csrc/ with nvcc, and count K2
+                vpu's SASS instructions per (query, target) pair in its
+                inner loop (cuobjdump -sass of the built library);
   3. kernels -- each kernel against its plain PyTorch version on the card at
                 the main path's shapes on seeded random inputs (K1 PCG at S=96,
                 plus S=192/256; K2 KNN bins, vpu and mxu scoring, at Q=8192 vs
-                T=8192 and T=16384);
+                T=8192 and T=16384), and at the edges of their launch
+                geometry: K1 with iters=0, a system that exits early, S=8
+                (held to the plain solve in float64, see below);
+                K2 vpu with Q not a multiple of its queries per thread, T =
+                n_bins (one target group), D=3 and D=8;
   4. main    -- LidarOdometry(WildcatConfig(), device="cuda") on an 8 s
                 synthetic sequence at 64k points per sweep: ATE < 0.02 m, and
                 both kernels launched by that run. The run records the inputs
@@ -19,6 +25,10 @@ non-zero):
                 then each kernel against its plain version on the recorded
                 main-path inputs, with CUDA-event timings of both and of one
                 PyTorch call as yardstick (library_ms), and each kernel's bound;
+                then K1's S-scaling table: K1 on the random S=96/192/256
+                systems, its time, iterations run, bound and share of it;
+                then each wrapper's cost (wrapper_costs): device time, time
+                of single calls, and the host's time per call;
   6. paths   -- at the shipped config, each path with the launch counts set to
                 0 before it and read after it: (a) the room with
                 degeneracy_remap=True, equal to the main path's trajectory bit
@@ -36,9 +46,15 @@ dimension order), so values and indices must be bit-equal. K1 sums its
 matvec in another order than the plain version's cuBLAS gemv and CG
 amplifies that: the solutions must agree within K1_RTOL of their largest
 entry, the relative residuals |(H+D)x-b|/|b| within K1_RES_RTOL of each
-other and below 1 (the residual of x = 0), two kernel runs must give the same bits (no float atomics), and the
-kernel must sit at most a tenth as far from the plain solution as a plain
-solve that drops the damping or runs one iteration fewer. K2 mxu takes its
+other and below 1 (the residual of x = 0), two kernel runs must give the
+same bits (no float atomics), and the kernel must sit at most a tenth as far
+from the plain solution as a plain solve that drops the damping or runs one
+iteration fewer. On an ill-conditioned system (S=8) 24 iterations amplify the
+plain f32 solve's own rounding: there the plain solve in float64 on the same
+inputs is the reference for all of these checks, and the kernel must also
+sit no farther from it than the plain f32 solve does (its residual within
+K1_RES_RTOL of the reference's, or no farther than the plain f32 solve's
+residual). K2 mxu takes its
 product as three TF32 passes (csrc/knn_mxu.cu) where the plain version takes
 one f32 product: per (query, bin) the minima must agree within MXU_FACTOR *
 2^-23 * (|q| + |t|)^2 at the two winning targets (~10x the worst gap seen),
@@ -46,6 +62,12 @@ the indices may differ only where the two winners' exact squared distances
 lie within that bound (near ties, counted), recall@10 against an exact search
 >= 0.95, and the mxu and vpu top-10 sets must share >= 99.5% of their
 candidates; a single-pass TF32 product must fail the value bound.
+
+Timings: ms, plain_ms and library_ms are the median of 20 single calls,
+each between CUDA events and synchronised, so they include the host's launch
+overhead; device_ms is CUDA events around 20 back-to-back calls divided by
+20, the median of 5 such runs, where that overhead hides behind the device's
+work unless it is the larger.
 
 Bounds (bound_ms): the larger of the bytes each kernel must move (inputs read
 once, outputs written once) over 3.35 TB/s and its operations over the peak
@@ -58,6 +80,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -79,7 +102,8 @@ def _nvidia_smi() -> str:
 
 
 def _time_ms(fn, warmup: int = 3, reps: int = 20) -> float:
-    """Median milliseconds of ``fn`` by CUDA events (each rep synchronised)."""
+    """Median milliseconds of single calls of ``fn`` by CUDA events, each
+    synchronised (host launch overhead included)."""
     import torch
 
     for _ in range(warmup):
@@ -98,6 +122,112 @@ def _time_ms(fn, warmup: int = 3, reps: int = 20) -> float:
     return times[len(times) // 2]
 
 
+def _device_ms(fn, warmup: int = 3, reps: int = 20, runs: int = 5) -> float:
+    """Milliseconds per call of ``fn`` on the device: CUDA events around
+    ``reps`` back-to-back calls, divided by ``reps``; the median of ``runs``."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / reps)
+    times.sort()
+    return times[len(times) // 2]
+
+
+def _host_us(fn, reps: int = 50, runs: int = 5) -> float:
+    """Microseconds of host time per call of ``fn`` (the enqueue, not the
+    device's work): ``reps`` calls with no sync between them, the median of
+    ``runs``."""
+    import torch
+
+    times = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        times.append((time.perf_counter() - t0) / reps * 1e6)
+        torch.cuda.synchronize()
+    times.sort()
+    return times[len(times) // 2]
+
+
+_SASS_INSTR = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
+_SASS_BRANCH = re.compile(r"\bBRA\s+(?:`\(\.L_x_\d+\)\s*)?0x([0-9a-f]+)")
+SASS_GROUPS_PER_TRIP = 2  # csrc/knn_bins.cu: the loop is unrolled over two target buffers
+
+
+def sass_functions(sass: str) -> dict:
+    """{mangled name: [(address, instruction), ...]} of a ``cuobjdump -sass`` listing."""
+    out, cur = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = out.setdefault(m.group(1), [])
+            continue
+        m = _SASS_INSTR.search(line)
+        if m and cur is not None:
+            cur.append((int(m.group(1), 16), m.group(2)))
+    return out
+
+
+def sass_loop(instrs: list) -> list:
+    """The instructions from the target of the one backward branch to the branch."""
+    back = []
+    for addr, text in instrs:
+        m = _SASS_BRANCH.search(text)
+        if m and int(m.group(1), 16) < addr:
+            back.append((int(m.group(1), 16), addr))
+    if len(back) != 1:
+        raise ValueError(f"expected one backward branch, found {len(back)}")
+    lo, hi = back[0]
+    return [text for addr, text in instrs if lo <= addr <= hi]
+
+
+def sass_opcode(text: str) -> str:
+    """``@!P0 FADD.FTZ R1, ...`` -> ``FADD``."""
+    return re.sub(r"^@!?U?P\w+\s+", "", text).split()[0].split(".")[0]
+
+
+def sass_per_pair(so) -> list:
+    """K2 vpu's inner loop in the built library ``so``, per instance
+    knn_bins_kernel<D, Q>: one trip scores SASS_GROUPS_PER_TRIP target groups
+    for Q queries. Lines of instructions a pair against the bound's 3 D + 2."""
+    import collections
+    from pathlib import Path
+
+    from wildcat_slam_tpu_torch.ops import _build
+
+    cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass", str(so)], capture_output=True, text=True,
+                          check=True, timeout=120).stdout
+    lines = []
+    for name, instrs in sass_functions(sass).items():
+        m = re.search(r"knn_bins_kernelILi(\d+)ELi(\d+)E", name)
+        if not m:
+            continue
+        d, q = int(m.group(1)), int(m.group(2))
+        body = sass_loop(instrs)
+        pairs = SASS_GROUPS_PER_TRIP * q
+        ops = collections.Counter(sass_opcode(t) for t in body)
+        lines.append(f"K2 vpu SASS, knn_bins_kernel<{d}, {q}>: {len(body)} instructions a trip "
+                     f"of {pairs} pairs, {len(body) / pairs:.2f} a pair (bound {3 * d + 2}); "
+                     + ", ".join(f"{k} {v}" for k, v in ops.most_common()))
+    if len(lines) != 3:
+        raise AssertionError(f"expected three knn_bins_kernel instances, found {len(lines)}")
+    return sorted(lines)
+
+
 def _random_system(s_cap: int, seed: int):
     """SPD normal matrix and rhs, as tests/test_pcg_pallas.py builds them."""
     import numpy as np
@@ -106,6 +236,24 @@ def _random_system(s_cap: int, seed: int):
     n = s_cap * 12
     a = rng.normal(size=(n, n + 24))
     return (a @ a.T / n).astype(np.float32), rng.normal(size=(n,)).astype(np.float32)
+
+
+def random_system(dev, s_cap: int, shift: float = 0.0):
+    """K1's inputs on the card for the random system of ``s_cap`` blocks,
+    with ``shift`` added to H's diagonal (at S=96, 0.5 makes it converge in 8
+    iterations at tol 1e-2): H, the damping (1e-3 of the diagonal), the block
+    inverses and b."""
+    import numpy as np
+    import torch
+
+    from wildcat_slam_tpu_torch.ops import pcg
+
+    h_np, b_np = _random_system(s_cap, seed=s_cap)
+    h = torch.as_tensor(h_np + np.float32(shift) * np.eye(12 * s_cap, dtype=np.float32),
+                        device=dev)
+    b = torch.as_tensor(b_np, device=dev)
+    dlam = 1e-3 * torch.clip(torch.diagonal(h), 1e-6, 1e32)
+    return h, dlam, pcg.block_diag_inverse(h, dlam, s_cap), b
 
 
 def _cloud(rng, n: int, spread: float = 5.0):
@@ -209,8 +357,12 @@ def _recall10(dq, dt, got) -> float:
     return hits / (dq.shape[0] * 10)
 
 
-def check_k1(label: str, h, dlam, minv, b, iters: int, tol: float) -> float:
-    """K1 against its plain version on one system; returns max |x - x_plain|."""
+def check_k1(label: str, h, dlam, minv, b, iters: int, tol: float,
+             reference: str = "f32") -> float:
+    """K1 against its plain version on one system; returns max |x - x_ref|.
+    ``reference="f64"``: the plain solve in float64 on the same inputs is the
+    reference, and the kernel must sit no farther from it than the plain f32
+    solve does (see the module doc)."""
     import torch
 
     from wildcat_slam_tpu_torch.ops import pcg
@@ -218,27 +370,49 @@ def check_k1(label: str, h, dlam, minv, b, iters: int, tol: float) -> float:
     x = pcg.pcg_solve(h, dlam, minv, b, iters, tol)
     x2 = pcg.pcg_solve(h, dlam, minv, b, iters, tol)
     xp = pcg.pcg_solve_plain(h, dlam, minv, b, iters, tol)
+    hr, dr, mr, br = (t.double() for t in (h, dlam, minv, b)) if reference == "f64" \
+        else (h, dlam, minv, b)
+    xr = pcg.pcg_solve_plain(hr, dr, mr, br, iters, tol) if reference == "f64" else xp
     # what a wrong kernel would give: no damping in the matvec, or one
     # iteration fewer (0 when the plain solve exits before its last iteration)
-    x_nodamp = pcg.pcg_solve_plain(h, torch.zeros_like(dlam), minv, b, iters, tol)
-    x_short = pcg.pcg_solve_plain(h, dlam, minv, b, iters - 1, tol)
+    x_nodamp = pcg.pcg_solve_plain(hr, torch.zeros_like(dr), mr, br, iters, tol)
+    x_short = pcg.pcg_solve_plain(hr, dr, mr, br, iters - 1, tol)
     torch.cuda.synchronize()
 
     def res(v):
-        return float(torch.linalg.norm(h @ v + dlam * v - b) / torch.linalg.norm(b))
+        v = v.to(hr.dtype)
+        return float(torch.linalg.norm(hr @ v + dr * v - br) / torch.linalg.norm(br))
 
-    err = float(torch.max(torch.abs(x - xp)))
-    scale = float(torch.max(torch.abs(xp)))
-    gaps = [float(torch.max(torch.abs(v - xp))) for v in (x_nodamp, x_short)]
-    r, rp = res(x), res(xp)
-    line = (f"K1 pcg {label}: max|x-x_plain|={err:.3e} = {err / scale:.3e} of max|x_plain|="
-            f"{scale:.3e} (bound {K1_RTOL:g}); residual |(H+D)x-b|/|b| kernel {r:.7g} plain "
-            f"{rp:.7g}, {abs(r - rp) / rp:.3e} apart (bound {K1_RES_RTOL:g}); plain without damping "
-            f"{gaps[0]:.3e} away, one iteration fewer {gaps[1]:.3e} away; "
-            f"bitwise-repeatable={bool(torch.equal(x, x2))}")
-    print(line, flush=True)
-    ok = (err <= K1_RTOL * scale and abs(r - rp) <= K1_RES_RTOL * rp and r < 1.0
+    err = float(torch.max(torch.abs(x.to(xr.dtype) - xr)))
+    if iters == 0:  # no iteration: x stays 0, exactly
+        line = (f"K1 pcg {label}: x == 0 {bool(torch.equal(x, torch.zeros_like(x)))}, plain "
+                f"x == 0 {bool(torch.equal(xp, torch.zeros_like(xp)))}, "
+                f"bitwise-repeatable={bool(torch.equal(x, x2))}")
+        print(line, flush=True)
+        if not (torch.equal(x, torch.zeros_like(x)) and torch.equal(xp, x) and torch.equal(x, x2)):
+            raise AssertionError("K1 disagrees with its plain version: " + line)
+        return err
+    scale = float(torch.max(torch.abs(xr)))
+    gaps = [float(torch.max(torch.abs(v - xr))) for v in (x_nodamp, x_short)]
+    r, rr = res(x), res(xr)
+    ref = "plain" if reference == "f32" else "plain f64"
+    line = (f"K1 pcg {label}: max|x-x_{reference}|={err:.3e} = {err / scale:.3e} of "
+            f"max|x_{reference}|={scale:.3e} (bound {K1_RTOL:g}); residual |(H+D)x-b|/|b| "
+            f"kernel {r:.7g} {ref} {rr:.7g}, {abs(r - rr) / rr:.3e} apart (bound "
+            f"{K1_RES_RTOL:g}); {ref} without damping {gaps[0]:.3e} away, one iteration fewer "
+            f"{gaps[1]:.3e} away; bitwise-repeatable={bool(torch.equal(x, x2))}")
+    res_bound = K1_RES_RTOL * rr
+    if reference == "f64":
+        err32 = float(torch.max(torch.abs(xp.double() - xr)))
+        r32 = res(xp)
+        res_bound = max(res_bound, abs(r32 - rr))
+        line += (f"; the plain f32 solve {err32 / scale:.3e} of max|x_f64| away, its residual "
+                 f"{abs(r32 - rr) / rr:.3e} apart (the kernel must be no farther in either)")
+    ok = (err <= K1_RTOL * scale and abs(r - rr) <= res_bound and r < 1.0
           and torch.equal(x, x2) and all(err <= 0.1 * g for g in gaps if g > 0))
+    if reference == "f64":
+        ok = ok and err <= err32
+    print(line, flush=True)
     if not ok:
         raise AssertionError("K1 disagrees with its plain version: " + line)
     return err
@@ -310,16 +484,25 @@ def phase_kernels(dev) -> None:
     import numpy as np
     import torch
 
-    from wildcat_slam_tpu_torch.ops import pcg
+    from wildcat_slam_tpu_torch.ops import knn
 
-    # K1 at the main path's S=96 (iters 24, tol 1e-2), then S=192/256
+    # K1 at the main path's S=96 (iters 24, tol 1e-2), then S=192/256, then
+    # the edges: no iteration, a system that exits early, a small grid (S=8)
     for s_cap in (96, 192, 256):
-        h_np, b_np = _random_system(s_cap, seed=s_cap)
-        h = torch.as_tensor(h_np, device=dev)
-        b = torch.as_tensor(b_np, device=dev)
-        dlam = 1e-3 * torch.clip(torch.diagonal(h), 1e-6, 1e32)
-        minv = pcg.block_diag_inverse(h, dlam, s_cap)
+        h, dlam, minv, b = random_system(dev, s_cap)
         check_k1(f"random S={s_cap}", h, dlam, minv, b, 24, 1e-2)
+    h, dlam, minv, b = random_system(dev, 96)
+    check_k1("random S=96 iters=0", h, dlam, minv, b, 0, 1e-2)
+    h, dlam, minv, b = random_system(dev, 96, shift=0.5)
+    its = _pcg_iterations(h, dlam, minv, b, 24, 1e-2)
+    if not 0 < its < 24:
+        raise AssertionError(f"K1 early-exit case ran {its} of 24 iterations")
+    check_k1(f"random S=96 H + 0.5 I (exits after {its} of 24 iterations)", h, dlam, minv, b, 24,
+             1e-2)
+    # S=8: ill-conditioned enough that 24 iterations amplify the plain f32
+    # solve's own rounding, so the reference is the plain solve in float64
+    h, dlam, minv, b = random_system(dev, 8)
+    check_k1("random S=8", h, dlam, minv, b, 24, 1e-2, reference="f64")
     # K2 at Q=8192 against T=8192 (self) and T=16384 (cross)
     rng = np.random.default_rng(0)
     for t_n in (8192, 16384):
@@ -327,6 +510,17 @@ def phase_kernels(dev) -> None:
         dq = dt[:8192].contiguous() if t_n == 8192 else torch.as_tensor(_cloud(rng, 8192), device=dev)
         check_k2(f"random Q=8192 T={t_n}", dq, dt, 512, recall=True)
         check_mxu(f"random Q=8192 T={t_n}", dq, dt, 512, recall=True)
+    # K2 vpu at the edges of its geometry: a ragged last query block, a single
+    # target group, and the other descriptor widths it is built for
+    qpt = knn.QUERIES_PER_THREAD[6]
+    for q_n, t_n, d in ((8192 + qpt // 2 + 1, 16384, 6), (1001, 512, 6), (3001, 4096, 3),
+                        (3001, 4096, 8)):
+        dt = torch.as_tensor(rng.normal(size=(t_n, d)).astype(np.float32), device=dev)
+        dq = torch.as_tensor(rng.normal(size=(q_n, d)).astype(np.float32), device=dev)
+        dt[t_n // 3:t_n // 3 + 7] = knn.FAR  # far rows never win a bin
+        check_k2(f"edge Q={q_n} T={t_n} D={d} (Q % {knn.QUERIES_PER_THREAD[d]} = "
+                 f"{q_n % knn.QUERIES_PER_THREAD[d]}, {t_n // 512} target groups)", dq, dt, 512,
+                 recall=False)
 
 
 def phase_main(dev) -> tuple:
@@ -381,10 +575,17 @@ def phase_main(dev) -> tuple:
     return launches, recorded, traj, events
 
 
+def _pcg_bound(n: int, its: int) -> tuple:
+    """K1's bound: H, dlam, b, x and the block inverses moved once; the f32
+    operations of ``its`` iterations (matvec 2 N^2 + 38 N each) and the setup."""
+    return _bound(4.0 * (n * n + 3 * n + 144 * (n // 12)),
+                  fp32=(its * (2.0 * n * n + 38 * n) + 28 * n) / F32_FLOPS)
+
+
 def phase_replay(recorded: dict) -> dict:
     """The mxu path on the recorded K2 inputs, then each kernel against its
     plain version on the recorded main-path inputs; the times of both, of the
-    yardstick, and each kernel's bound."""
+    yardstick, and each kernel's bound; then K1's S-scaling table."""
     import torch
 
     from wildcat_slam_tpu_torch.ops import knn, pcg
@@ -409,8 +610,7 @@ def phase_replay(recorded: dict) -> dict:
                    "first LM iteration)", h, dlam, minv, b, iters, tol)
     n = h.shape[0]
     its = _pcg_iterations(h, dlam, minv, b, iters, tol)
-    bound_ms, bound_by = _bound(4.0 * (n * n + 3 * n + 144 * (n // 12)),
-                                fp32=(its * (2.0 * n * n + 38 * n) + 28 * n) / F32_FLOPS)
+    bound_ms, bound_by = _pcg_bound(n, its)
 
     def cholesky():  # the exact solve of the damped system: the LM step's library yardstick
         chol = torch.linalg.cholesky(h + torch.diag(dlam))
@@ -418,12 +618,11 @@ def phase_replay(recorded: dict) -> dict:
 
     out["pcg"] = dict(max_abs_err=err,
                       ms=_time_ms(lambda: pcg.pcg_solve(h, dlam, minv, b, iters, tol)),
+                      device_ms=_device_ms(lambda: pcg.pcg_solve(h, dlam, minv, b, iters, tol)),
                       plain_ms=_time_ms(lambda: pcg.pcg_solve_plain(h, dlam, minv, b, iters, tol)),
                       bound_ms=bound_ms, bound_by=bound_by, library_ms=_time_ms(cholesky))
-    print(f"K1 pcg main-path time: kernel {out['pcg']['ms']:.4f} ms, plain "
-          f"{out['pcg']['plain_ms']:.4f} ms, cholesky + cholesky_solve {out['pcg']['library_ms']:.4f}"
-          f" ms (median of 20, CUDA events); {its} of {iters} iterations run, bound "
-          f"{bound_ms * 1e3:.2f} us ({bound_by})", flush=True)
+    _print_times("K1 pcg main-path", out["pcg"], "cholesky + cholesky_solve",
+                 f"; {its} of {iters} iterations run")
     for t_n in t_sizes:
         dq, dt, n_bins = recorded[("knn", t_n)]
         err = check_k2(f"main-path Q={dq.shape[0]} T={t_n}", dq, dt, n_bins, recall=False)
@@ -434,10 +633,12 @@ def phase_replay(recorded: dict) -> dict:
         bound_ms, bound_by = _bound(4.0 * (q * d + t_n * d) + 8.0 * q * n_bins,
                                     fp32=q * t_n * (3 * d + 2) / F32_OPS)
         out["knn"] = dict(max_abs_err=err, ms=_time_ms(lambda: knn.knn_bins(dq, dt, n_bins)),
+                          device_ms=_device_ms(lambda: knn.knn_bins(dq, dt, n_bins)),
                           plain_ms=_time_ms(lambda: knn.knn_bins_plain(dq, dt, n_bins)),
                           bound_ms=bound_ms, bound_by=bound_by,
                           library_ms=_time_ms(lambda: torch.topk(torch.cdist(dq, dt), 10, dim=1,
                                                                  largest=False)))
+        _print_times(f"K2 knn main-path T={t_n}", out["knn"], "exact cdist + topk")
         dq_aug, dtt_aug = knn.mxu_embedding(dq, dt)
         kd = dq_aug.shape[1]
         bound_ms, bound_by = _bound(4.0 * (q * kd + kd * t_n) + 8.0 * q * n_bins,
@@ -446,15 +647,64 @@ def phase_replay(recorded: dict) -> dict:
         out["knn_mxu"] = dict(
             max_abs_err=err_mxu, launches=mxu_launches,
             ms=_time_ms(lambda: knn.knn_bins_mxu(dq_aug, dtt_aug, n_bins)),
+            device_ms=_device_ms(lambda: knn.knn_bins_mxu(dq_aug, dtt_aug, n_bins)),
             plain_ms=_time_ms(lambda: knn.knn_bins_mxu_plain(dq_aug, dtt_aug, n_bins)),
             bound_ms=bound_ms, bound_by=bound_by,
             library_ms=_time_ms(lambda: torch.topk(dq_aug @ dtt_aug, 10, dim=1, largest=False)))
-        for key, what in (("knn", "cdist + topk"), ("knn_mxu", "matmul + topk")):
-            r = out[key]
-            print(f"K2 {key} main-path T={t_n} time: kernel {r['ms']:.4f} ms, plain "
-                  f"{r['plain_ms']:.4f} ms, exact {what} {r['library_ms']:.4f} ms (median of 20, "
-                  f"CUDA events); bound {r['bound_ms'] * 1e3:.2f} us ({r['bound_by']})",
-                  flush=True)
+        _print_times(f"K2 knn_mxu main-path T={t_n}", out["knn_mxu"], "exact matmul + topk")
+
+    # K1's S-scaling table on the random systems of phase 3 (iters 24, tol 1e-2)
+    sms = torch.cuda.get_device_properties(h.device).multi_processor_count
+    for s_cap in (96, 192, 256):
+        h, dlam, minv, b = random_system(h.device, s_cap)
+        its = _pcg_iterations(h, dlam, minv, b, 24, 1e-2)
+        ms = _device_ms(lambda: pcg.pcg_solve(h, dlam, minv, b, 24, 1e-2))
+        bound_ms, bound_by = _pcg_bound(12 * s_cap, its)
+        print(f"K1 S-scaling S={s_cap}: device {ms:.4f} ms, {its} of 24 iterations run, "
+              f"{ms / max(its, 1) * 1e3:.2f} us per iteration; bound {bound_ms * 1e3:.2f} us "
+              f"({bound_by}), {bound_ms / ms:.2%} of it; plan {pcg.launch_plan(s_cap, sms)}",
+              flush=True)
+    return out
+
+
+def _print_times(label: str, r: dict, library: str, extra: str = "") -> None:
+    print(f"{label} time: kernel {r['ms']:.4f} ms by single synchronised calls, "
+          f"{r['device_ms']:.4f} ms back to back; plain {r['plain_ms']:.4f} ms, {library} "
+          f"{r['library_ms']:.4f} ms{extra}; bound {r['bound_ms'] * 1e3:.2f} us "
+          f"({r['bound_by']}), {r['bound_ms'] / r['device_ms']:.2%} of the device time",
+          flush=True)
+
+
+def wrapper_costs(dev) -> dict:
+    """What K1 and K2 vpu cost through their wrappers: K1 on the random S=96
+    system capped at 16 iterations (as many as the main path's first solve
+    runs), K2 vpu at Q=8192 against T=16384, D=6 (the main path's larger
+    search). For each: device ms (back to back), ms of single synchronised
+    calls, and the host's microseconds per call. It calls only the wrappers'
+    signatures, so it times another checkout's package the same way:
+
+        python3 -c "import runpy, sys, torch; sys.path.insert(0, 'OTHER');
+          runpy.run_path('chip_smoke.py')['wrapper_costs'](torch.device('cuda', 0))"
+    """
+    import numpy as np
+    import torch
+
+    from wildcat_slam_tpu_torch.ops import knn, pcg
+
+    h, dlam, minv, b = random_system(dev, 96)
+    its = _pcg_iterations(h, dlam, minv, b, 16, 1e-2)
+    rng = np.random.default_rng(1)
+    dt = torch.as_tensor(_cloud(rng, 16384), device=dev)
+    dq = torch.as_tensor(_cloud(rng, 8192), device=dev)
+    out = {}
+    for key, fn in (("pcg", lambda: pcg.pcg_solve(h, dlam, minv, b, 16, 1e-2)),
+                    ("knn", lambda: knn.knn_bins(dq, dt, 512))):
+        out[key] = dict(device_ms=_device_ms(fn), ms=_time_ms(fn), host_us=_host_us(fn))
+    print(f"wrapper costs ({pcg.__file__.rsplit('/ops/', 1)[0]}): K1 S=96, {its} iterations: "
+          f"device {out['pcg']['device_ms']:.4f} ms, single calls {out['pcg']['ms']:.4f} ms, "
+          f"host {out['pcg']['host_us']:.1f} us a call; K2 vpu Q=8192 T=16384 D=6: device "
+          f"{out['knn']['device_ms']:.4f} ms, single calls {out['knn']['ms']:.4f} ms, host "
+          f"{out['knn']['host_us']:.1f} us a call", flush=True)
     return out
 
 
@@ -464,7 +714,6 @@ def phase_paths(dev, main_traj, main_events) -> dict:
     import contextlib
     import io
     import os
-    import re
     import tempfile
 
     import numpy as np
@@ -578,9 +827,12 @@ def main() -> int:
     t0 = time.perf_counter()
     so = _build.build()
     print(f"build: {so.name} ready in {time.perf_counter() - t0:.1f} s", flush=True)
+    for line in sass_per_pair(so):
+        print(f"build: {line}", flush=True)
     phase_kernels(dev)
     launches, recorded, main_traj, main_events = phase_main(dev)
     kern = phase_replay(recorded)
+    wrapper_costs(dev)
     phase_paths(dev, main_traj, main_events)
     bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "wildcat_slam_tpu"))
     if bad:
@@ -597,7 +849,8 @@ def main() -> int:
              replaces="wildcat_slam_tpu/ops/knn_pallas.py:104", **mxu),
     ]
     for r in rows:
-        nums = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "library_ms")
+        nums = ("launches", "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
+                "library_ms")
         if not (r["launches"] > 0 and all(math.isfinite(r[k]) for k in nums)):
             raise AssertionError(f"missing or non-finite measurement: {r}")
     print(smi)

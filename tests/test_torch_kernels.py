@@ -53,7 +53,7 @@ def _random_system(s_cap, seed):
     return (a @ a.T / n).astype(np.float32), rng.normal(size=(n,)).astype(np.float32)
 
 
-@pytest.mark.parametrize("q_n,t_n", [(300, 512), (300, 2048), (1000, 4096)])
+@pytest.mark.parametrize("q_n,t_n", [(300, 512), (300, 2048), (1000, 4096), (8201, 16384)])
 def test_knn_bins_kernel_equals_plain(cuda_device, q_n, t_n):
     rng = np.random.default_rng(t_n)
     dt = torch.as_tensor(_cloud(rng, t_n), device=cuda_device)
@@ -64,6 +64,47 @@ def test_knn_bins_kernel_equals_plain(cuda_device, q_n, t_n):
     vp, ip = knn.knn_bins_plain(dq, dt, 512)
     assert knn.LAUNCHES == before + 1
     assert torch.equal(vk, vp) and torch.equal(ik, ip)
+
+
+@pytest.mark.parametrize("q_n,t_n,d,n_bins", [(1001, 512, 6, 512), (17, 128, 6, 128),
+                                               (3001, 4096, 3, 512), (3001, 4096, 8, 512),
+                                               (777, 1536, 6, 384), (1, 1024, 6, 512)])
+def test_knn_bins_kernel_edges(cuda_device, q_n, t_n, d, n_bins):
+    """The edges of the kernel's geometry: a ragged last query block (Q not a
+    multiple of its queries per thread), one target group (T = n_bins), bins
+    not a multiple of its block, and D = 3 and 8."""
+    rng = np.random.default_rng(q_n + t_n + d)
+    dt = torch.as_tensor(rng.normal(size=(t_n, d)).astype(np.float32), device=cuda_device)
+    dq = torch.as_tensor(rng.normal(size=(q_n, d)).astype(np.float32), device=cuda_device)
+    before = knn.LAUNCHES
+    vk, ik = knn.knn_bins(dq, dt, n_bins)
+    vp, ip = knn.knn_bins_plain(dq, dt, n_bins)
+    assert knn.LAUNCHES == before + 1
+    assert torch.equal(vk, vp) and torch.equal(ik, ip)
+
+
+def test_knn_bins_kernel_refuses_a_launch_it_was_not_built_for(cuda_device):
+    """The C entry checks the launch it is given: a (D, queries a thread) pair
+    it was not compiled for, or a grid that leaves queries or bins uncovered."""
+    from wildcat_slam_tpu_torch.ops import _build
+
+    dq = torch.zeros((100, 6), device=cuda_device)
+    dtt = torch.zeros((6, 512), device=cuda_device)
+    vals = torch.empty((100, 512), device=cuda_device)
+    idx = torch.empty((100, 512), dtype=torch.int32, device=cuda_device)
+    lib = _build.library()
+    stream = torch.cuda.current_stream(cuda_device).cuda_stream
+
+    def launch(*grid):
+        return lib.wc_knn_bins(dq.data_ptr(), dtt.data_ptr(), vals.data_ptr(), idx.data_ptr(),
+                               100, 512, 6, 512, *grid, stream)
+
+    assert launch(*knn.bins_grid(100, 512, 6)) == 0
+    assert launch(4, 13, 128, 8) != 0   # D=6 is built for 16 queries a thread
+    assert launch(4, 6, 128, 16) != 0   # 96 of 100 queries covered
+    assert launch(3, 7, 128, 16) != 0   # 384 of 512 bins covered
+    assert launch(2, 7, 256, 16) != 0   # more threads than the launch bounds
+    torch.cuda.synchronize()
 
 
 def mxu_check(dq, dt, n_bins):
@@ -107,8 +148,14 @@ def test_knn_mxu_kernel_matches_plain(cuda_device, q_n, t_n):
     assert agree >= 0.995, agree
 
 
-@pytest.mark.parametrize("s_cap", [8, 96, 256])
-def test_pcg_kernel_matches_plain(cuda_device, s_cap):
+@pytest.mark.parametrize("s_cap,reference", [(8, "f64"), (96, "f32"), (192, "f32"),
+                                             (256, "f32")])
+def test_pcg_kernel_matches_plain(cuda_device, s_cap, reference):
+    """Within 1e-5 of the plain solution's scale. At S=8 the system is
+    ill-conditioned enough that 24 iterations amplify the plain f32 solve's
+    own rounding: there the reference is the plain solve in float64 on the
+    same inputs, and the kernel must sit no farther from it than the plain
+    f32 solve does."""
     h, g = _random_system(s_cap, seed=s_cap)
     th, tg = torch.as_tensor(h, device=cuda_device), torch.as_tensor(g, device=cuda_device)
     dlam = 1e-3 * torch.clip(torch.diagonal(th), 1e-6, 1e32)
@@ -119,9 +166,38 @@ def test_pcg_kernel_matches_plain(cuda_device, s_cap):
     assert pcg.LAUNCHES == before + 2
     assert torch.equal(x1, x2)
     xp = pcg.pcg_solve_plain(th, dlam, minv, tg, 24, 1e-2)
-    assert float(torch.max(torch.abs(x1 - xp))) <= 1e-5 * float(torch.max(torch.abs(xp)))
+    if reference == "f64":
+        xr = pcg.pcg_solve_plain(th.double(), dlam.double(), minv.double(), tg.double(), 24, 1e-2)
+        assert float(torch.max(torch.abs(x1.double() - xr))) <= float(
+            torch.max(torch.abs(xp.double() - xr)))
+    else:
+        xr = xp
+    assert float(torch.max(torch.abs(x1.to(xr.dtype) - xr))) <= 1e-5 * float(
+        torch.max(torch.abs(xr)))
     zero = pcg.pcg_solve(th, dlam, minv, torch.zeros_like(tg), 24, 1e-2)
     assert torch.equal(zero, torch.zeros_like(tg))  # early exit before any iteration
+
+
+@pytest.mark.parametrize("s_cap,shift,iters", [(96, 0.0, 0), (96, 0.5, 24), (1, 0.0, 24),
+                                               (1000, 0.0, 3)])
+def test_pcg_kernel_edges(cuda_device, s_cap, shift, iters):
+    """No iteration (x stays 0), a system that exits early (H + 0.5 I: 8 of
+    24 iterations), one block-row, and S = 1000, where no block-row fits a
+    block's shared memory and every block streams its rows from L2."""
+    h, g = _random_system(s_cap, seed=s_cap)
+    th = torch.as_tensor(h + np.float32(shift) * np.eye(12 * s_cap, dtype=np.float32),
+                         device=cuda_device)
+    tg = torch.as_tensor(g, device=cuda_device)
+    dlam = 1e-3 * torch.clip(torch.diagonal(th), 1e-6, 1e32)
+    minv = pcg.block_diag_inverse(th, dlam, s_cap)
+    x1 = pcg.pcg_solve(th, dlam, minv, tg, iters, 1e-2)
+    x2 = pcg.pcg_solve(th, dlam, minv, tg, iters, 1e-2)
+    xp = pcg.pcg_solve_plain(th, dlam, minv, tg, iters, 1e-2)
+    assert torch.equal(x1, x2)
+    if iters == 0:
+        assert torch.equal(x1, torch.zeros_like(tg)) and torch.equal(xp, x1)
+    else:
+        assert float(torch.max(torch.abs(x1 - xp))) <= 1e-5 * float(torch.max(torch.abs(xp)))
 
 
 def test_float64_pcg_refused_on_the_card(cuda_device):
@@ -133,7 +209,7 @@ def test_float64_pcg_refused_on_the_card(cuda_device):
 
 
 def test_pcg_kernel_refuses_what_it_cannot_hold(cuda_device):
-    big = torch.zeros((12012, 12012), device=cuda_device)
+    big = torch.zeros((1, 1), device=cuda_device).expand(12012, 12012)  # refused before any read
     with pytest.raises(ValueError, match="exceeds"):
         pcg.pcg_solve(big, big[0], torch.zeros((1001, 12, 12), device=cuda_device), big[0], 4, 1e-2)
     h = torch.zeros((24, 24), dtype=torch.float64, device=cuda_device)

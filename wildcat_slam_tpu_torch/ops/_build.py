@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels (``csrc/*.cu``).
 
-The sources are compiled with ``nvcc`` for ``sm_90a`` into one shared library
-with a plain C interface, loaded with ``ctypes``. The build runs at first use,
+The sources are compiled with ``nvcc`` for ``sm_90a``, one ``nvcc`` process
+per source, all started together, then linked into one shared library with a
+plain C interface, loaded with ``ctypes``. The build runs at first use,
 into ``wildcat_slam_tpu_torch/_build/``, and the library's file name carries a
 hash of the sources, so an edited source is rebuilt and an unchanged one is
 loaded as it is. Nothing here runs at import time.
@@ -23,7 +24,7 @@ SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("pcg.cu", "knn_bins.cu", "knn_mxu.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lib = None
 
@@ -54,14 +55,34 @@ def build() -> Path:
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *(str(SRC_DIR / s) for s in SOURCES)]
+    objs = [so.with_suffix(f".{os.getpid()}.{Path(src).stem}.o") for src in SOURCES]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n{res.stderr}")
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(SRC_DIR / src)]
+            for src, obj in zip(SOURCES, objs)]
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for cmd in cmds]
+    stderr = ""
+    try:
+        for cmd, proc in zip(cmds, procs):
+            err = proc.communicate()[1]
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{err}")
+            stderr += err
+        cmd = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n{res.stderr}")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     os.replace(tmp, so)
     seconds = time.perf_counter() - t0
-    ptxas = [ln for ln in res.stderr.splitlines() if "ptxas info" in ln]
+    ptxas = [ln for ln in stderr.splitlines() if "ptxas info" in ln]
     print(f"built {so.name} in {seconds:.1f} s", file=sys.stderr)
     for ln in ptxas:
         print(ln, file=sys.stderr)
@@ -74,9 +95,10 @@ def library() -> ctypes.CDLL:
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
         vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.wc_pcg_solve.argtypes = [vp, vp, vp, vp, vp, vp, i32, i32, f32, vp]
+        lib.wc_pcg_solve.argtypes = [vp, vp, vp, vp, vp, vp, i32, i32, f32, i32, i32, i32, i32, vp]
         lib.wc_pcg_solve.restype = i32
-        lib.wc_knn_bins.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32, vp]
+        lib.wc_knn_bins.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32, i32, i32, i32, i32,
+                                    vp]
         lib.wc_knn_bins.restype = i32
         lib.wc_knn_mxu.argtypes = [vp, vp, vp, vp, i32, i32, i32, vp]
         lib.wc_knn_mxu.restype = i32

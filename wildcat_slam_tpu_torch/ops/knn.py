@@ -18,6 +18,8 @@ score and its target index (earlier target on ties). An exact top-k over the
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from wildcat_slam_tpu_torch.ops import _build
@@ -26,6 +28,26 @@ LAUNCHES = 0  # kernel launches by knn_bins (not by knn_bins_plain)
 MXU_LAUNCHES = 0  # kernel launches by knn_bins_mxu (not by knn_bins_mxu_plain)
 
 FAR = 1e6  # padding descriptor value: padded targets never win a bin
+
+# The launch of csrc/knn_bins.cu, which takes it from bins_grid: a block is
+# one row of BINS_PER_BLOCK bins (at most 128), a thread one bin for
+# QUERIES_PER_THREAD[D] consecutive queries (the kernel is compiled for these
+# pairs of D and queries a thread, and refuses others)
+BINS_PER_BLOCK = 128
+QUERIES_PER_THREAD = {3: 16, 6: 16, 8: 8}
+
+
+class BinsGrid(NamedTuple):
+    bin_blocks: int          # grid x: blocks of BINS_PER_BLOCK bins
+    query_blocks: int        # grid y: blocks of queries_per_thread queries
+    threads: int             # bins a block, one thread each
+    queries_per_thread: int  # consecutive queries each thread scores
+
+
+def bins_grid(q: int, n_bins: int, d: int) -> BinsGrid:
+    """The kernel's launch for Q queries of width D against n_bins bins."""
+    qpt = QUERIES_PER_THREAD[d]
+    return BinsGrid(-(-n_bins // BINS_PER_BLOCK), -(-q // qpt), BINS_PER_BLOCK, qpt)
 
 
 def _sqdist(dq: torch.Tensor, dt: torch.Tensor) -> torch.Tensor:
@@ -80,8 +102,12 @@ def knn_bins(dq: torch.Tensor, dt: torch.Tensor, n_bins: int):
         raise ValueError(f"knn_bins: unsupported devices {dq.device}, {dt.device}")
     if dq.dtype != torch.float32 or dt.dtype != torch.float32:
         raise ValueError("knn_bins: the kernel takes float32 descriptors")
-    if d not in (3, 6, 8):
+    if d not in QUERIES_PER_THREAD:
         raise ValueError(f"knn_bins: the kernel is built for D in (3, 6, 8), got {d}")
+    grid = bins_grid(q, n_bins, d)
+    if grid.query_blocks > 65535:
+        raise ValueError(f"knn_bins: Q={q} queries exceed the kernel's grid "
+                         f"({65535 * grid.queries_per_thread} at D={d})")
     dqc = dq.contiguous()
     dtt = dt.t().contiguous()
     vals = torch.empty((q, n_bins), dtype=torch.float32, device=dq.device)
@@ -89,7 +115,7 @@ def knn_bins(dq: torch.Tensor, dt: torch.Tensor, n_bins: int):
     lib = _build.library()
     stream = torch.cuda.current_stream(dq.device).cuda_stream
     err = lib.wc_knn_bins(dqc.data_ptr(), dtt.data_ptr(), vals.data_ptr(), idx.data_ptr(),
-                          q, t, d, n_bins, stream)
+                          q, t, d, n_bins, *grid, stream)
     _build.check(err, "wc_knn_bins")
     LAUNCHES += 1
     return vals, idx
