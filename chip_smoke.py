@@ -6,9 +6,12 @@ Phases, one line each or more (any failure raises and the script exits
 non-zero):
   1. device  -- a CUDA card must be present (no CPU fallback); versions, and
                 the card's name and power limit from nvidia-smi;
-  2. build   -- compile the CUDA kernels from csrc/ with nvcc, and count K2
+  2. build   -- compile the CUDA kernels from csrc/ with nvcc, count K2
                 vpu's SASS instructions per (query, target) pair in its
-                inner loop (cuobjdump -sass of the built library);
+                inner loop (cuobjdump -sass of the built library), count the
+                tensor-core instructions of K2 mxu's main kernel (HGMMA, the
+                wgmma of Hopper, must be there and HMMA, mma.sync, must not),
+                and print K2 mxu's registers a thread, prologue and main;
   3. kernels -- each kernel against its plain PyTorch version on the card at
                 the main path's shapes on seeded random inputs (K1 PCG at S=96,
                 plus S=192/256; K2 KNN bins, vpu and mxu scoring, at Q=8192 vs
@@ -16,7 +19,9 @@ non-zero):
                 geometry: K1 with iters=0, a system that exits early, S=8
                 (held to the plain solve in float64, see below);
                 K2 vpu with Q not a multiple of its queries per thread, T =
-                n_bins (one target group), D=3 and D=8;
+                n_bins (one target group), D=3 and D=8; K2 mxu with a ragged
+                last query tile (Q=8201, Q=1001), T = n_bins (one group) and
+                n_bins 128, 256 and 384 (the bin counts knn_topk gives small T);
   4. main    -- LidarOdometry(WildcatConfig(), device="cuda") on an 8 s
                 synthetic sequence at 64k points per sweep: ATE < 0.02 m, and
                 both kernels launched by that run. The run records the inputs
@@ -28,7 +33,10 @@ non-zero):
                 then K1's S-scaling table: K1 on the random S=96/192/256
                 systems, its time, iterations run, bound and share of it;
                 then each wrapper's cost (wrapper_costs): device time, time
-                of single calls, and the host's time per call;
+                of single calls, and the host's time per call; then K2 vpu
+                and K2 mxu side by side (device time, bound) at Q=8192,
+                T=16384 and at Q=16384, T=65536, with K2 mxu held to its plain
+                version at the larger shape;
   6. paths   -- at the shipped config, each path with the launch counts set to
                 0 before it and read after it: (a) the room with
                 degeneracy_remap=True, equal to the main path's trajectory bit
@@ -88,6 +96,9 @@ import time
 K1_RTOL = 1e-5
 K1_RES_RTOL = 2e-5
 MXU_FACTOR = 16.0
+# (Q, T, n_bins) of K2 mxu's edge cases; tests/test_torch_kernels.py has the same
+MXU_EDGES = ((8201, 16384, 512), (1001, 512, 512), (3001, 4096, 128), (3001, 4096, 256),
+             (3001, 3840, 384))
 
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12        # FMA counted as two operations
@@ -199,18 +210,23 @@ def sass_opcode(text: str) -> str:
     return re.sub(r"^@!?U?P\w+\s+", "", text).split()[0].split(".")[0]
 
 
-def sass_per_pair(so) -> list:
-    """K2 vpu's inner loop in the built library ``so``, per instance
-    knn_bins_kernel<D, Q>: one trip scores SASS_GROUPS_PER_TRIP target groups
-    for Q queries. Lines of instructions a pair against the bound's 3 D + 2."""
-    import collections
+def cuobjdump_sass(so) -> str:
+    """The ``cuobjdump -sass`` listing of the built library ``so``."""
     from pathlib import Path
 
     from wildcat_slam_tpu_torch.ops import _build
 
     cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
-    sass = subprocess.run([str(cuobjdump), "-sass", str(so)], capture_output=True, text=True,
+    return subprocess.run([str(cuobjdump), "-sass", str(so)], capture_output=True, text=True,
                           check=True, timeout=120).stdout
+
+
+def sass_per_pair(sass: str) -> list:
+    """K2 vpu's inner loop in a ``cuobjdump -sass`` listing, per instance
+    knn_bins_kernel<D, Q>: one trip scores SASS_GROUPS_PER_TRIP target groups
+    for Q queries. Lines of instructions a pair against the bound's 3 D + 2."""
+    import collections
+
     lines = []
     for name, instrs in sass_functions(sass).items():
         m = re.search(r"knn_bins_kernelILi(\d+)ELi(\d+)E", name)
@@ -226,6 +242,40 @@ def sass_per_pair(so) -> list:
     if len(lines) != 3:
         raise AssertionError(f"expected three knn_bins_kernel instances, found {len(lines)}")
     return sorted(lines)
+
+
+def mxu_tensor_ops(sass: str) -> str:
+    """The tensor-core instructions of K2 mxu's main kernel (knn_mxu_kernel,
+    not its prologue) in a ``cuobjdump -sass`` listing: a line with the counts
+    of HGMMA (Hopper's wgmma), HMMA (mma.sync) and the warpgroup fences and
+    waits around them. Raises unless HGMMA > 0 and HMMA == 0."""
+    import collections
+
+    funcs = [instrs for name, instrs in sass_functions(sass).items()
+             if re.search(r"14knn_mxu_kernel", name)]
+    if len(funcs) != 1:
+        raise AssertionError(f"expected one knn_mxu_kernel in the listing, found {len(funcs)}")
+    ops = collections.Counter(sass_opcode(t) for _, t in funcs[0])
+    wg = collections.Counter(".".join(re.sub(r"^@!?U?P\w+\s+", "", t).split()[0].split(".")[:2])
+                             for _, t in funcs[0] if "WARPGROUP" in t)
+    line = (f"K2 mxu SASS, knn_mxu_kernel: HGMMA {ops['HGMMA']}, HMMA {ops['HMMA']} (needs "
+            f"HGMMA > 0 and HMMA == 0); " + ", ".join(f"{k} {v}" for k, v in sorted(wg.items())))
+    if not (ops["HGMMA"] > 0 and ops["HMMA"] == 0):
+        raise AssertionError("K2 mxu does not run on wgmma: " + line)
+    return line
+
+
+def mxu_registers() -> str:
+    """K2 mxu's registers and local (spill) bytes a thread, prologue and main
+    kernel, as the loaded library reports them."""
+    import ctypes
+
+    from wildcat_slam_tpu_torch.ops import _build
+
+    res = (ctypes.c_int * 4)()
+    _build.check(_build.library().wc_knn_mxu_resources(res), "wc_knn_mxu_resources")
+    return (f"K2 mxu registers a thread: prologue knn_mxu_split_kernel {res[0]} ({res[1]} B "
+            f"local), main knn_mxu_kernel {res[2]} ({res[3]} B local)")
 
 
 def _random_system(s_cap: int, seed: int):
@@ -521,6 +571,15 @@ def phase_kernels(dev) -> None:
         check_k2(f"edge Q={q_n} T={t_n} D={d} (Q % {knn.QUERIES_PER_THREAD[d]} = "
                  f"{q_n % knn.QUERIES_PER_THREAD[d]}, {t_n // 512} target groups)", dq, dt, 512,
                  recall=False)
+    # K2 mxu at the edges of its geometry: a ragged last query tile, a single
+    # target group, and the bin counts knn_topk gives a small T
+    for q_n, t_n, n_bins in MXU_EDGES:
+        dt = torch.as_tensor(rng.normal(size=(t_n, 6)).astype(np.float32), device=dev)
+        dq = torch.as_tensor(rng.normal(size=(q_n, 6)).astype(np.float32), device=dev)
+        dt[t_n // 3:t_n // 3 + 7] = knn.FAR  # far rows never win a bin
+        check_mxu(f"edge Q={q_n} T={t_n} n_bins={n_bins} (Q % {knn.MXU_QUERY_TILE} = "
+                  f"{q_n % knn.MXU_QUERY_TILE}, {t_n // n_bins} target groups)", dq, dt, n_bins,
+                  recall=False)
 
 
 def phase_main(dev) -> tuple:
@@ -630,8 +689,7 @@ def phase_replay(recorded: dict) -> dict:
         if t_n != t_sizes[-1]:
             continue
         q, d = dq.shape
-        bound_ms, bound_by = _bound(4.0 * (q * d + t_n * d) + 8.0 * q * n_bins,
-                                    fp32=q * t_n * (3 * d + 2) / F32_OPS)
+        (bound_ms, bound_by), mxu_bound = _knn_bounds(q, t_n, n_bins, d)
         out["knn"] = dict(max_abs_err=err, ms=_time_ms(lambda: knn.knn_bins(dq, dt, n_bins)),
                           device_ms=_device_ms(lambda: knn.knn_bins(dq, dt, n_bins)),
                           plain_ms=_time_ms(lambda: knn.knn_bins_plain(dq, dt, n_bins)),
@@ -640,10 +698,7 @@ def phase_replay(recorded: dict) -> dict:
                                                                  largest=False)))
         _print_times(f"K2 knn main-path T={t_n}", out["knn"], "exact cdist + topk")
         dq_aug, dtt_aug = knn.mxu_embedding(dq, dt)
-        kd = dq_aug.shape[1]
-        bound_ms, bound_by = _bound(4.0 * (q * kd + kd * t_n) + 8.0 * q * n_bins,
-                                    tf32=q * t_n * kd * 2 * 3 / TF32_FLOPS,
-                                    fold=3.0 * q * t_n / F32_OPS)
+        bound_ms, bound_by = mxu_bound
         out["knn_mxu"] = dict(
             max_abs_err=err_mxu, launches=mxu_launches,
             ms=_time_ms(lambda: knn.knn_bins_mxu(dq_aug, dtt_aug, n_bins)),
@@ -676,12 +731,12 @@ def _print_times(label: str, r: dict, library: str, extra: str = "") -> None:
 
 
 def wrapper_costs(dev) -> dict:
-    """What K1 and K2 vpu cost through their wrappers: K1 on the random S=96
-    system capped at 16 iterations (as many as the main path's first solve
-    runs), K2 vpu at Q=8192 against T=16384, D=6 (the main path's larger
-    search). For each: device ms (back to back), ms of single synchronised
-    calls, and the host's microseconds per call. It calls only the wrappers'
-    signatures, so it times another checkout's package the same way:
+    """What K1, K2 vpu and K2 mxu cost through their wrappers: K1 on the
+    random S=96 system capped at 16 iterations (as many as the main path's
+    first solve runs), K2 vpu and mxu at Q=8192 against T=16384, D=6 (the main
+    path's larger search). For each: device ms (back to back), ms of single
+    synchronised calls, and the host's microseconds per call. It calls only the
+    wrappers' signatures, so it times another checkout's package the same way:
 
         python3 -c "import runpy, sys, torch; sys.path.insert(0, 'OTHER');
           runpy.run_path('chip_smoke.py')['wrapper_costs'](torch.device('cuda', 0))"
@@ -696,16 +751,56 @@ def wrapper_costs(dev) -> dict:
     rng = np.random.default_rng(1)
     dt = torch.as_tensor(_cloud(rng, 16384), device=dev)
     dq = torch.as_tensor(_cloud(rng, 8192), device=dev)
+    dq_aug, dtt_aug = knn.mxu_embedding(dq, dt)
     out = {}
     for key, fn in (("pcg", lambda: pcg.pcg_solve(h, dlam, minv, b, 16, 1e-2)),
-                    ("knn", lambda: knn.knn_bins(dq, dt, 512))):
+                    ("knn", lambda: knn.knn_bins(dq, dt, 512)),
+                    ("knn_mxu", lambda: knn.knn_bins_mxu(dq_aug, dtt_aug, 512))):
         out[key] = dict(device_ms=_device_ms(fn), ms=_time_ms(fn), host_us=_host_us(fn))
+
+    def costs(key):
+        return (f"device {out[key]['device_ms']:.4f} ms, single calls {out[key]['ms']:.4f} ms, "
+                f"host {out[key]['host_us']:.1f} us a call")
+
     print(f"wrapper costs ({pcg.__file__.rsplit('/ops/', 1)[0]}): K1 S=96, {its} iterations: "
-          f"device {out['pcg']['device_ms']:.4f} ms, single calls {out['pcg']['ms']:.4f} ms, "
-          f"host {out['pcg']['host_us']:.1f} us a call; K2 vpu Q=8192 T=16384 D=6: device "
-          f"{out['knn']['device_ms']:.4f} ms, single calls {out['knn']['ms']:.4f} ms, host "
-          f"{out['knn']['host_us']:.1f} us a call", flush=True)
+          f"{costs('pcg')}; K2 vpu Q=8192 T=16384 D=6: {costs('knn')}; K2 mxu Q=8192 T=16384 "
+          f"D=6: {costs('knn_mxu')}", flush=True)
     return out
+
+
+def _knn_bounds(q: int, t: int, n_bins: int, d: int = 6) -> tuple:
+    """(K2 vpu's, K2 mxu's) bound at Q queries of width D against T targets:
+    bytes of the inputs and the (Q, n_bins) outputs; vpu's 3 D + 2 f32
+    operations a pair; mxu's 3-pass TF32 product at depth 8 and its fold."""
+    return (_bound(4.0 * (q * d + t * d) + 8.0 * q * n_bins, fp32=q * t * (3 * d + 2) / F32_OPS),
+            _bound(4.0 * (q * 8 + 8 * t) + 8.0 * q * n_bins, tf32=q * t * 8 * 2 * 3 / TF32_FLOPS,
+                   fold=3.0 * q * t / F32_OPS))
+
+
+def phase_crossover(dev) -> None:
+    """K2 vpu and K2 mxu side by side at the main path's Q=8192, T=16384 and
+    at Q=16384, T=65536 (the larger shape of knn_pallas.py's A/B), on seeded
+    descriptor clouds: device time (back to back) and share of each bound; K2
+    mxu held to its plain version at the larger shape (no recall pass)."""
+    import numpy as np
+    import torch
+
+    from wildcat_slam_tpu_torch.ops import knn
+
+    for q_n, t_n in ((8192, 16384), (16384, 65536)):
+        rng = np.random.default_rng(t_n)
+        dt = torch.as_tensor(_cloud(rng, t_n), device=dev)
+        dq = torch.as_tensor(_cloud(rng, q_n), device=dev)
+        if t_n == 65536:
+            check_mxu(f"crossover Q={q_n} T={t_n}", dq, dt, 512, recall=False)
+        dq_aug, dtt_aug = knn.mxu_embedding(dq, dt)
+        vpu = _device_ms(lambda: knn.knn_bins(dq, dt, 512))
+        mxu = _device_ms(lambda: knn.knn_bins_mxu(dq_aug, dtt_aug, 512))
+        (bv, _), (bm, _) = _knn_bounds(q_n, t_n, 512)
+        print(f"K2 crossover Q={q_n} T={t_n} n_bins=512: vpu device {vpu:.4f} ms "
+              f"({bv / vpu:.2%} of its bound {bv * 1e3:.2f} us), mxu device {mxu:.4f} ms "
+              f"({bm / mxu:.2%} of its bound {bm * 1e3:.2f} us); mxu / vpu {mxu / vpu:.3f}",
+              flush=True)
 
 
 def phase_paths(dev, main_traj, main_events) -> dict:
@@ -827,12 +922,14 @@ def main() -> int:
     t0 = time.perf_counter()
     so = _build.build()
     print(f"build: {so.name} ready in {time.perf_counter() - t0:.1f} s", flush=True)
-    for line in sass_per_pair(so):
+    sass = cuobjdump_sass(so)
+    for line in sass_per_pair(sass) + [mxu_tensor_ops(sass), mxu_registers()]:
         print(f"build: {line}", flush=True)
     phase_kernels(dev)
     launches, recorded, main_traj, main_events = phase_main(dev)
     kern = phase_replay(recorded)
     wrapper_costs(dev)
+    phase_crossover(dev)
     phase_paths(dev, main_traj, main_events)
     bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "wildcat_slam_tpu"))
     if bad:

@@ -15,6 +15,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT_MODULES = [
     "wildcat_slam_tpu_torch", "wildcat_slam_tpu_torch.cli", "wildcat_slam_tpu_torch._numerics",
     "wildcat_slam_tpu_torch.config", "wildcat_slam_tpu_torch.profile_sweeps",
+    "wildcat_slam_tpu_torch.probe_knn_mxu",
     "wildcat_slam_tpu_torch.io.synthetic", "wildcat_slam_tpu_torch.io.dataset",
     "wildcat_slam_tpu_torch.io.trajectory", "wildcat_slam_tpu_torch.odometry._ptbuf",
     "wildcat_slam_tpu_torch.ops.lie", "wildcat_slam_tpu_torch.ops.spline",

@@ -148,6 +148,53 @@ def test_knn_mxu_kernel_matches_plain(cuda_device, q_n, t_n):
     assert agree >= 0.995, agree
 
 
+# chip_smoke.py MXU_EDGES
+@pytest.mark.parametrize("q_n,t_n,n_bins", [(8201, 16384, 512), (1001, 512, 512),
+                                            (3001, 4096, 128), (3001, 4096, 256),
+                                            (3001, 3840, 384)])
+def test_knn_mxu_kernel_edges(cuda_device, q_n, t_n, n_bins):
+    """The edges of the mxu kernel's geometry: a ragged last query tile (Q
+    not a multiple of 128), one target group (T = n_bins), and the bin counts
+    knn_topk gives a small T (128, 256 and 384: two, four and six 64-bin
+    tiles)."""
+    rng = np.random.default_rng(q_n + t_n + n_bins)
+    dt = torch.as_tensor(rng.normal(size=(t_n, 6)).astype(np.float32), device=cuda_device)
+    dq = torch.as_tensor(rng.normal(size=(q_n, 6)).astype(np.float32), device=cuda_device)
+    dt[t_n // 3:t_n // 3 + 7] = knn.FAR  # far rows never win a bin
+    before = knn.MXU_LAUNCHES
+    ratio, mismatch, far = mxu_check(dq, dt, n_bins)
+    assert knn.MXU_LAUNCHES == before + 1
+    assert ratio <= MXU_FACTOR and far == 0, (ratio, mismatch, far)
+
+
+def test_knn_mxu_kernel_refuses_a_launch_it_was_not_built_for(cuda_device):
+    """The C entry checks the launch it is given against the kernel's
+    constants: bin tile, stages, shared memory and the padded bin count."""
+    from wildcat_slam_tpu_torch.ops import _build
+
+    q, t, nb = 300, 1000, 200  # 5 groups of 200 bins; 256 padded bins
+    plan = knn.mxu_plan(q, nb)
+    dq = torch.zeros((q, 8), device=cuda_device)
+    dtt = torch.zeros((8, t), device=cuda_device)
+    staged = torch.empty((t // nb) * plan.padded_bins * 16, device=cuda_device)
+    vals = torch.empty((q, nb), device=cuda_device)
+    idx = torch.empty((q, nb), dtype=torch.int32, device=cuda_device)
+    lib = _build.library()
+    stream = torch.cuda.current_stream(cuda_device).cuda_stream
+
+    def launch(*p):
+        return lib.wc_knn_mxu(dq.data_ptr(), dtt.data_ptr(), staged.data_ptr(), vals.data_ptr(),
+                              idx.data_ptr(), q, t, nb, *p, stream)
+
+    assert launch(*plan) == 0
+    assert launch(plan.grid, 128, *plan[2:]) != 0  # built for 64-bin tiles
+    assert launch(plan.grid, 64, 2 * plan.stages, *plan[3:]) != 0  # built for plan.stages
+    assert launch(*plan[:3], plan.smem_bytes // 2, plan.padded_bins) != 0
+    assert launch(*plan[:4], 192) != 0  # 192 padded bins leave bins 192-199 out
+    assert launch(0, *plan[1:]) != 0
+    torch.cuda.synchronize()
+
+
 @pytest.mark.parametrize("s_cap,reference", [(8, "f64"), (96, "f32"), (192, "f32"),
                                              (256, "f32")])
 def test_pcg_kernel_matches_plain(cuda_device, s_cap, reference):

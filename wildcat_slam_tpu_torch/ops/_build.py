@@ -82,7 +82,7 @@ def build() -> Path:
             obj.unlink(missing_ok=True)
     os.replace(tmp, so)
     seconds = time.perf_counter() - t0
-    ptxas = [ln for ln in stderr.splitlines() if "ptxas info" in ln]
+    ptxas = [ln for ln in stderr.splitlines() if "ptxas" in ln]
     print(f"built {so.name} in {seconds:.1f} s", file=sys.stderr)
     for ln in ptxas:
         print(ln, file=sys.stderr)
@@ -100,8 +100,11 @@ def library() -> ctypes.CDLL:
         lib.wc_knn_bins.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32, i32, i32, i32, i32,
                                     vp]
         lib.wc_knn_bins.restype = i32
-        lib.wc_knn_mxu.argtypes = [vp, vp, vp, vp, i32, i32, i32, vp]
+        lib.wc_knn_mxu.argtypes = [vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, i32, i32, i32,
+                                   vp]
         lib.wc_knn_mxu.restype = i32
+        lib.wc_knn_mxu_resources.argtypes = [ctypes.POINTER(i32)]
+        lib.wc_knn_mxu_resources.restype = i32
         lib.wc_error_string.argtypes = [i32]
         lib.wc_error_string.restype = ctypes.c_char_p
         _lib = lib

@@ -12,12 +12,14 @@ score and its target index (earlier target on ties). An exact top-k over the
   tensor it runs :func:`knn_bins_plain`.
 - "mxu" scoring: the augmented product ``[-2q, 1, 0..] . [t; |t|^2; 0..] =
   |t|^2 - 2 q.t`` in f32, with ``|q|^2`` added back by :func:`knn_topk`. On a
-  CUDA tensor :func:`knn_bins_mxu` launches ``csrc/knn_mxu.cu`` (tensor cores,
-  3xTF32 split); on a CPU tensor it runs :func:`knn_bins_mxu_plain`.
+  CUDA tensor :func:`knn_bins_mxu` launches ``csrc/knn_mxu.cu`` (Hopper
+  ``wgmma``, 3xTF32 split, laid out by :func:`mxu_plan`); on a CPU tensor it
+  runs :func:`knn_bins_mxu_plain`.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -48,6 +50,48 @@ def bins_grid(q: int, n_bins: int, d: int) -> BinsGrid:
     """The kernel's launch for Q queries of width D against n_bins bins."""
     qpt = QUERIES_PER_THREAD[d]
     return BinsGrid(-(-n_bins // BINS_PER_BLOCK), -(-q // qpt), BINS_PER_BLOCK, qpt)
+
+
+# The launch of csrc/knn_mxu.cu, which takes it from mxu_plan and checks it
+# against its constants: persistent blocks walk the (MXU_QUERY_TILE queries,
+# MXU_BIN_TILE bins) tiles, blockIdx.x, blockIdx.x + grid, ...; a block is two
+# consumer warpgroups of 64 query rows and one producer warp. Its dynamic
+# shared memory holds a ring of MXU_STAGES stages, each MXU_GROUPS_PER_STAGE
+# target groups (the TF32 hi and lo halves of MXU_BIN_TILE targets at depth
+# 8), and a tile's outputs (vals and idx) staged for their copy to global
+# memory in rows of MXU_OUT_PITCH floats.
+MXU_BIN_TILE = 64
+MXU_QUERY_TILE = 128
+MXU_GROUPS_PER_STAGE = 4
+MXU_STAGES = 4
+MXU_STAGE_BYTES = MXU_GROUPS_PER_STAGE * 2 * MXU_BIN_TILE * 8 * 4
+MXU_OUT_PITCH = MXU_BIN_TILE + 8
+MXU_SMEM_BYTES = MXU_STAGES * MXU_STAGE_BYTES + 2 * MXU_QUERY_TILE * MXU_OUT_PITCH * 4
+H100_SMS = 132
+
+
+class MxuPlan(NamedTuple):
+    grid: int         # persistent blocks, at most one per SM
+    bin_tile: int     # bins a tile (the N of wgmma.m64nNk8)
+    stages: int       # target stages in a block's ring
+    smem_bytes: int   # dynamic shared memory a block: the ring and the staged outputs
+    padded_bins: int  # n_bins rounded up to whole bin tiles (the split targets' width)
+
+
+def mxu_plan(q: int, n_bins: int, sms: int = H100_SMS) -> MxuPlan:
+    """The mxu kernel's launch for Q queries against n_bins bins on a card
+    with ``sms`` SMs. Raises ValueError for what the kernel cannot take."""
+    if q < 1 or n_bins < 8 or n_bins % 8:
+        raise ValueError(f"knn_bins_mxu: needs Q >= 1 and n_bins % 8 == 0, got Q={q}, "
+                         f"n_bins={n_bins}")
+    padded = -(-n_bins // MXU_BIN_TILE) * MXU_BIN_TILE
+    tiles = -(-q // MXU_QUERY_TILE) * (padded // MXU_BIN_TILE)
+    return MxuPlan(min(tiles, sms), MXU_BIN_TILE, MXU_STAGES, MXU_SMEM_BYTES, padded)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
 def _sqdist(dq: torch.Tensor, dt: torch.Tensor) -> torch.Tensor:
@@ -148,13 +192,18 @@ def knn_bins_mxu(dq_aug: torch.Tensor, dtt_aug: torch.Tensor, n_bins: int):
     if kd != 8 or n_bins % 8:
         raise ValueError(f"knn_bins_mxu: the kernel takes depth 8 and n_bins % 8 == 0, "
                          f"got depth {kd}, n_bins={n_bins}")
+    dev = dq_aug.device
+    plan = mxu_plan(q, n_bins, _sm_count(dev.index if dev.index is not None
+                                         else torch.cuda.current_device()))
     dqc, dtc = dq_aug.contiguous(), dtt_aug.contiguous()
-    vals = torch.empty((q, n_bins), dtype=torch.float32, device=dq_aug.device)
-    idx = torch.empty((q, n_bins), dtype=torch.int32, device=dq_aug.device)
+    # the split targets: hi and lo of each (group, bin tile), 16 floats a padded target
+    staged = torch.empty((t // n_bins) * plan.padded_bins * 16, dtype=torch.float32, device=dev)
+    vals = torch.empty((q, n_bins), dtype=torch.float32, device=dev)
+    idx = torch.empty((q, n_bins), dtype=torch.int32, device=dev)
     lib = _build.library()
-    stream = torch.cuda.current_stream(dq_aug.device).cuda_stream
-    err = lib.wc_knn_mxu(dqc.data_ptr(), dtc.data_ptr(), vals.data_ptr(), idx.data_ptr(),
-                         q, t, n_bins, stream)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.wc_knn_mxu(dqc.data_ptr(), dtc.data_ptr(), staged.data_ptr(), vals.data_ptr(),
+                         idx.data_ptr(), q, t, n_bins, *plan, stream)
     _build.check(err, "wc_knn_mxu")
     MXU_LAUNCHES += 1
     return vals, idx
@@ -163,8 +212,8 @@ def knn_bins_mxu(dq_aug: torch.Tensor, dtt_aug: torch.Tensor, n_bins: int):
 def mxu_embedding(dq: torch.Tensor, dt: torch.Tensor):
     """The augmented embedding of ``knn_topk_fused(mode="mxu")``, padded to the
     mma depth of 8 instead of 128: dq_aug (Q, 8) rows ``[-2q, 1, 0..]`` and
-    dtt_aug (8, T) columns ``[t; |t|^2; 0..]``. The kernel runs one m16n8k8
-    step, so D + 1 <= 8: the matcher's descriptors have D = 6."""
+    dtt_aug (8, T) columns ``[t; |t|^2; 0..]``. The kernel runs one k8 step
+    of ``wgmma``, so D + 1 <= 8: the matcher's descriptors have D = 6."""
     (q, d), t = dq.shape, dt.shape[0]
     if d + 1 > 8:
         raise ValueError(f"mxu scoring takes D <= 7 descriptor dims (one depth-8 mma step), "
