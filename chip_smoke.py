@@ -44,7 +44,23 @@ non-zero):
                 both ATEs and the sweeps where it fired; (c) 8 sweeps, a
                 checkpoint, a fresh LidarOdometry loaded from it running the
                 rest, equal to the main path's trajectory bit for bit; (d) the
-                CLI on a framed stream file, its scan->pose latency.
+                CLI on a framed stream file, its scan->pose latency;
+                (e) batched windows: BatchedOdometry(batch=2) on the room
+                seeds 0 (8 s) and 1 (6 s, so window 1 drains on no-op feeds),
+                each window within BATCH_TOL of its single-window run (seed 0:
+                the main path's), then ms per lockstep round and the sweeps a
+                second over all windows at B=1, 2 and 4 (four seeds, 4 rounds);
+                (f) chained sweeps: LidarOdometry(chunk_sweeps=4) on the main
+                path's sequence, within BATCH_TOL of its trajectory, its median
+                ms per sweep, and the host syncs and launches per sweep of
+                both paths over sweeps 5-8 by torch.profiler;
+                (g) outputs: cli --synthetic 4 with --surfels-out, --cloud-out,
+                --profile and --traj-out (the PLYs parse, the cloud holds every
+                point the sweeps were fed, the trace names the pcg and
+                knn_bins kernels), then cli --batch of two 4 s rooms with
+                --max-sweeps 4 --checkpoint-out, its --resume to the end, and
+                an uninterrupted run: the resumed TUM files equal the
+                uninterrupted ones.
 The script imports nothing of JAX or of the JAX package. Its last three lines
 are the card's name and power limit, a JSON object with one entry per kernel,
 and {"ok": true, "device": {...}}.
@@ -94,6 +110,7 @@ import sys
 import time
 
 K1_RTOL = 1e-5
+BATCH_TOL = 1e-6  # m and quaternion units: batched or chained against single-window runs
 K1_RES_RTOL = 2e-5
 MXU_FACTOR = 16.0
 # (Q, T, n_bins) of K2 mxu's edge cases; tests/test_torch_kernels.py has the same
@@ -631,7 +648,7 @@ def phase_main(dev) -> tuple:
           f"ATE {ate * 1e3:.3f} mm unaligned (< 20 mm); launches {launches}", flush=True)
     if not (lo.sweep_id >= 10 and np.all(np.isfinite(poses)) and ate < 0.02):
         raise AssertionError(f"main path failed: sweeps={lo.sweep_id} ATE={ate}")
-    return launches, recorded, traj, events
+    return launches, recorded, traj, events, float(np.median(steady))
 
 
 def _pcg_bound(n: int, its: int) -> tuple:
@@ -904,6 +921,258 @@ def phase_paths(dev, main_traj, main_events) -> dict:
     return counts
 
 
+def _traj_gap(a, b) -> float:
+    """Largest |position| or |quaternion| difference of two trajectories with
+    the same times (inf when they differ in length or times)."""
+    import numpy as np
+
+    if len(a) != len(b) or any(t1 != t2 for (t1, _, _), (t2, _, _) in zip(a, b)):
+        return math.inf
+    return max((float(max(np.abs(p1 - p2).max(), np.abs(q1 - q2).max()))
+                for (_, p1, q1), (_, p2, q2) in zip(a, b)), default=0.0)
+
+
+def _run_batch(dev, event_lists: list) -> tuple:
+    """BatchedOdometry over ``event_lists`` (one window each), fed as the CLI
+    feeds --batch: one scan of each window in turn, then pump; then finish.
+    Returns the BatchedOdometry and the seconds of each lockstep round (each ended by
+    a device synchronisation)."""
+    import torch
+
+    from wildcat_slam_tpu_torch.config import WildcatConfig
+    from wildcat_slam_tpu_torch.parallel.batch import BatchedOdometry
+
+    bo = BatchedOdometry(WildcatConfig(), batch=len(event_lists), device=dev)
+    rounds = []
+    step = bo._round
+
+    def timed_round(ready):
+        t0 = time.perf_counter()
+        step(ready)
+        torch.cuda.synchronize(dev)
+        rounds.append(time.perf_counter() - t0)
+
+    bo._round = timed_round
+    its = [iter(ev) for ev in event_lists]
+    live = [True] * len(its)
+    while any(live):
+        for i, it in enumerate(its):
+            for ev in it if live[i] else ():
+                (bo.add_imu if ev[0] == "imu" else bo.add_scan)(i, *ev[1:])
+                if ev[0] == "scan":
+                    break
+            else:
+                live[i] = False
+        bo.pump()
+    bo.finish()
+    return bo, rounds
+
+
+def phase_batch(dev, main_traj, main_events) -> None:
+    """(e): two windows against their single-window runs, then the lockstep
+    round time and throughput at B=1, 2 and 4."""
+    import numpy as np
+
+    from wildcat_slam_tpu_torch import cli
+    from wildcat_slam_tpu_torch.config import WildcatConfig
+    from wildcat_slam_tpu_torch.io.synthetic import SyntheticSequence
+    from wildcat_slam_tpu_torch.odometry.pipeline import LidarOdometry
+
+    def events(seed, duration):
+        return list(cli.synthetic_events(SyntheticSequence(
+            duration=duration, points_per_scan=12800, room_half=5.0, seed=seed)))
+
+    ev1 = events(1, 6.0)
+    single1 = LidarOdometry(WildcatConfig(), device=dev)
+    cli.feed_events(single1, ev1)
+    (bo, rounds), counts = _counted("batch B=2", lambda: _run_batch(dev, [main_events, ev1]))
+    gaps = [_traj_gap(bo.trajectories[0], main_traj), _traj_gap(bo.trajectories[1],
+                                                                single1.trajectory)]
+    sweeps = [w.sweep_id for w in bo.windows]
+    print(f"paths (e) batch B=2, room seeds 0 (8 s) and 1 (6 s): {len(rounds)} lockstep rounds, "
+          f"sweeps per window {sweeps}; largest gap to the single-window runs: window 0 "
+          f"{gaps[0]:.3e} (the main path's run), window 1 {gaps[1]:.3e} (bound {BATCH_TOL:g}, "
+          f"bit-equal: {[g == 0.0 for g in gaps]}); launches {counts}", flush=True)
+    if not (max(gaps) <= BATCH_TOL and sweeps == [len(main_traj), len(single1.trajectory)]
+            and sweeps[0] > sweeps[1] >= 10):
+        raise AssertionError(f"batched windows left their single-window runs: gaps {gaps}, "
+                             f"sweeps {sweeps}")
+    short = [events(seed, 2.1) for seed in range(4)]
+    rows = {2: rounds[:4]}
+    for b in (1, 4):
+        (bo, rows[b]), counts = _counted(f"batch B={b}", lambda: _run_batch(dev, short[:b]))
+        if [w.sweep_id for w in bo.windows] != [4] * b:
+            raise AssertionError(f"B={b}: sweeps {[w.sweep_id for w in bo.windows]}")
+    for b in (1, 2, 4):
+        ms = np.asarray(rows[b]) * 1e3
+        print(f"paths (e) batch B={b}, first 4 lockstep rounds: ms per round median "
+              f"{np.median(ms[1:]):.2f} (after the first), {b * len(ms) / (ms.sum() / 1e3):.2f} "
+              f"sweeps/s over all windows; rounds {np.round(ms, 2).tolist()}", flush=True)
+    print(f"paths (e) batch B=2, all {len(rounds)} rounds: ms per round median "
+          f"{np.median(np.asarray(rounds[1:]) * 1e3):.2f}, "
+          f"{sum(sweeps) / sum(rounds):.2f} sweeps/s over both windows", flush=True)
+
+
+def _profiled_syncs(dev, events, chunk: int) -> tuple:
+    """Host syncs and kernel launches per sweep over sweeps 5 to 8 (chained
+    with ``chunk`` = 4: its second chunk) under torch.profiler, counted by
+    the names profile_sweeps counts; the first four sweeps run unprofiled.
+    Only CUDA activity is traced (the runtime calls counted here are CUDA
+    events), and the raw events are counted by name: the counts that
+    key_averages() gives, without the parse into operator trees that takes
+    it seconds."""
+    import collections
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from wildcat_slam_tpu_torch import cli
+    from wildcat_slam_tpu_torch.config import WildcatConfig
+    from wildcat_slam_tpu_torch.odometry.pipeline import LidarOdometry
+    from wildcat_slam_tpu_torch.profile_sweeps import LAUNCH_KEYS, SYNC_KEYS
+
+    lo = LidarOdometry(WildcatConfig(), device=dev, chunk_sweeps=chunk)
+    n = cli.feed_events(lo, events, until_sweep=4)
+    torch.cuda.synchronize(dev)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        cli.feed_events(lo, events[n:], until_sweep=8)
+        lo.trajectory
+        torch.cuda.synchronize(dev)
+    names = collections.Counter(e.name() for e in prof.profiler.kineto_results.events())
+    syncs = sum(names[k] for k in SYNC_KEYS) / 4
+    launches = sum(names[k] for k in LAUNCH_KEYS) / 4
+    if lo.sweep_id != 8 or not (syncs > 0 and launches > 0):
+        raise AssertionError(f"the profiler saw {syncs} syncs and {launches} launches a sweep "
+                             f"over sweeps 5 to {lo.sweep_id}")
+    return syncs, launches
+
+
+def phase_chained(dev, main_traj, main_events, main_ms: float) -> None:
+    """(f): chunk_sweeps=4 on the main path's sequence, then the host syncs
+    and launches per sweep of both paths."""
+    import numpy as np
+
+    from wildcat_slam_tpu_torch import cli
+    from wildcat_slam_tpu_torch.config import WildcatConfig
+    from wildcat_slam_tpu_torch.odometry.pipeline import LidarOdometry
+
+    def run():
+        lo = LidarOdometry(WildcatConfig(), device=dev, chunk_sweeps=4)
+        t0 = time.perf_counter()
+        cli.feed_events(lo, main_events)
+        traj = lo.trajectory  # runs a padded tail chunk, if any, and copies the rows
+        return lo, traj, time.perf_counter() - t0
+
+    (lo, traj, wall), counts = _counted("chained", run)
+    gap = _traj_gap(traj, main_traj)
+    med = float(np.median(np.asarray(lo.sweep_seconds[1:]) * 1e3))
+    print(f"paths (f) chained, chunk_sweeps=4: {lo.sweep_id} sweeps in {wall:.2f} s, "
+          f"{-(-lo.sweep_id // 4)} chunks; largest gap to the main path's trajectory {gap:.3e} "
+          f"(bound {BATCH_TOL:g}, bit-equal: {gap == 0.0}); per-sweep ms after the first: "
+          f"median {med:.2f} (the main path's per-sweep dispatch: {main_ms:.2f}); "
+          f"launches {counts}", flush=True)
+    if not gap <= BATCH_TOL:
+        raise AssertionError(f"the chained run left the main path's trajectory: gap {gap}")
+    for label, chunk in (("per-sweep", 1), ("chained k=4", 4)):
+        syncs, launches = _profiled_syncs(dev, main_events, chunk)
+        print(f"paths (f) {label}: torch.profiler over sweeps 5-8: {syncs:.2f} host syncs and "
+              f"{launches:.2f} kernel launches per sweep", flush=True)
+
+
+def phase_outputs(dev) -> None:
+    """(g): the CLI's map outputs and trace, and a batch checkpoint resumed."""
+    import contextlib
+    import io
+    import os
+    import tempfile
+
+    import numpy as np
+
+    from wildcat_slam_tpu_torch import cli
+    from wildcat_slam_tpu_torch.config import WildcatConfig
+    from wildcat_slam_tpu_torch.io.synthetic import SyntheticSequence
+    from wildcat_slam_tpu_torch.odometry.pipeline import LidarOdometry
+
+    def run_cli(label, argv):
+        err = io.StringIO()
+        with contextlib.redirect_stderr(err):
+            rc, counts = _counted(label, lambda: cli.main(argv))
+        text = err.getvalue()
+        if rc != 0:
+            raise AssertionError(f"{label} failed:\n{text}")
+        return text, counts
+
+    # the points the CLI's sweeps are fed, by the host feeder alone
+    host = LidarOdometry(WildcatConfig(), device=dev)
+    host.dispatch = False
+    fed = 0
+    for ev in cli.synthetic_events(SyntheticSequence(duration=4.0, points_per_scan=6000,
+                                                     room_half=5.0)):
+        (host.add_imu if ev[0] == "imu" else host.add_scan)(*ev[1:])
+        while host._ready():
+            if not host.initialized:
+                host._init_args()
+            fed += host._prepare_feed()["host_stats"]["n_points_fed"]
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out = {k: os.path.join(tmp, k) for k in ("s.ply", "c.ply", "prof", "t.tum", "ck.npz",
+                                                 "full.tum", "resumed.tum")}
+        text, counts = run_cli("cli outputs", [
+            "--synthetic", "4", "--device", "cuda", "--surfels-out", out["s.ply"],
+            "--cloud-out", out["c.ply"], "--profile", out["prof"], "--traj-out", out["t.tum"]])
+        surf = _read_ply(out["s.ply"])
+        cloud = _read_ply(out["c.ply"])
+        with open(os.path.join(out["prof"], "trace.json")) as f:
+            trace = f.read()
+        names = {k: k in trace for k in ("pcg_kernel", "knn_bins_kernel")}
+        traj = np.loadtxt(out["t.tum"])
+        print(f"paths (g) cli --synthetic 4: {len(traj)} poses; surfels PLY {surf['vertex']} "
+              f"vertices, {surf['face']} faces; cloud PLY {cloud['vertex']} points (the sweeps "
+              f"were fed {fed}); trace {len(trace) / 1e6:.1f} MB names {names}; launches {counts}",
+              flush=True)
+        if not (len(traj) >= 7 and surf["vertex"] > 0 and surf["face"] > 0
+                and cloud["vertex"] == fed > 0 and all(names.values())):
+            raise AssertionError("cli outputs failed:\n" + text)
+
+        batch = ["--batch", "synthetic:4:room:0,synthetic:4:room:1", "--device", "cuda"]
+        run_cli("cli --batch --checkpoint-out",
+                batch + ["--max-sweeps", "4", "--checkpoint-out", out["ck.npz"]])
+        text, counts = run_cli("cli --batch --resume",
+                               batch + ["--resume", out["ck.npz"], "--traj-out", out["resumed.tum"]])
+        run_cli("cli --batch", batch + ["--traj-out", out["full.tum"]])
+        same = []
+        for i in range(2):
+            with open(out["resumed.tum"].replace(".tum", f"_w{i}.tum")) as f:
+                a = f.read()
+            with open(out["full.tum"].replace(".tum", f"_w{i}.tum")) as f:
+                same.append(a == f.read() and len(a.splitlines()) >= 7)
+        print(f"paths (g) cli --batch of two 4 s rooms: 4 sweeps, --checkpoint-out, --resume to "
+              f"the end: TUM files equal to the uninterrupted run's: {same}; the resumed run's "
+              f"launches {counts}", flush=True)
+        if not all(same):
+            raise AssertionError("the resumed batch left the uninterrupted one:\n" + text)
+
+
+def _read_ply(path: str) -> dict:
+    """Element counts of an ASCII PLY, with each data line checked for its
+    numbers (vertex rows: x y z [r g b]; face rows: 3 i j k)."""
+    with open(path) as f:
+        lines = f.read().splitlines()
+    if lines[:2] != ["ply", "format ascii 1.0"] or "end_header" not in lines:
+        raise AssertionError(f"{path}: not an ASCII PLY")
+    head = lines.index("end_header")
+    counts = {ln.split()[1]: int(ln.split()[2]) for ln in lines[:head]
+              if ln.startswith("element ")}
+    rows = lines[head + 1:]
+    n_v, n_f = counts.get("vertex", 0), counts.get("face", 0)
+    if len(rows) != n_v + n_f or any(len(r.split()) not in (3, 6) for r in rows[:n_v]) \
+            or any(r.split()[0] != "3" for r in rows[n_v:]):
+        raise AssertionError(f"{path}: the data does not match its header {counts}")
+    for r in rows[:n_v]:
+        [float(x) for x in r.split()]
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -926,11 +1195,23 @@ def main() -> int:
     for line in sass_per_pair(sass) + [mxu_tensor_ops(sass), mxu_registers()]:
         print(f"build: {line}", flush=True)
     phase_kernels(dev)
-    launches, recorded, main_traj, main_events = phase_main(dev)
+    t_main = time.perf_counter()
+    launches, recorded, main_traj, main_events, main_ms = phase_main(dev)
     kern = phase_replay(recorded)
     wrapper_costs(dev)
     phase_crossover(dev)
+    t_paths = time.perf_counter()
     phase_paths(dev, main_traj, main_events)
+    t_batch = time.perf_counter()
+    phase_batch(dev, main_traj, main_events)
+    t_chained = time.perf_counter()
+    phase_chained(dev, main_traj, main_events, main_ms)
+    t_outputs = time.perf_counter()
+    phase_outputs(dev)
+    t_end = time.perf_counter()
+    print(f"seconds: build, kernels, main and replay {t_paths - t0:.1f}, paths (a)-(d) "
+          f"{t_batch - t_paths:.1f}, (e) {t_chained - t_batch:.1f}, (f) "
+          f"{t_outputs - t_chained:.1f}, (g) {t_end - t_outputs:.1f}", flush=True)
     bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "wildcat_slam_tpu"))
     if bad:
         raise AssertionError(f"the port imported JAX or the JAX package: {bad}")

@@ -29,7 +29,9 @@ PORT_MODULES = [
     "wildcat_slam_tpu_torch.odometry.pipeline", "wildcat_slam_tpu_torch.odometry.convert",
     "wildcat_slam_tpu_torch.odometry.checkpoint", "wildcat_slam_tpu_torch.ops.se3",
     "wildcat_slam_tpu_torch.io.stream", "wildcat_slam_tpu_torch.io.rosbag",
-    "wildcat_slam_tpu_torch.utils.histogram",
+    "wildcat_slam_tpu_torch.utils.histogram", "wildcat_slam_tpu_torch.utils.profiling",
+    "wildcat_slam_tpu_torch.parallel.mesh", "wildcat_slam_tpu_torch.parallel.batch",
+    "wildcat_slam_tpu_torch.viz.surfel_export",
 ]
 
 
@@ -100,14 +102,55 @@ def test_chip_smoke_fails_alone(tmp_path):
     assert '"ok": true' not in _last_line(res.stdout)
 
 
-@pytest.mark.parametrize("flag", ["--batch", "--chunk-sweeps", "--native", "--viewer-port",
-                                  "--snapshot-every", "--surfels-out", "--cloud-out", "--profile"])
+@pytest.mark.parametrize("flag", ["--native", "--viewer-port", "--snapshot-every"])
 def test_cli_rejects_unported_modes(flag):
     from wildcat_slam_tpu_torch import cli
 
     value = [] if flag == "--native" else ["2"]
     with pytest.raises(NotImplementedError, match=flag):
         cli.main(["--synthetic", "1", "--device", "cpu", flag, *value])
+
+
+@pytest.mark.parametrize("argv", [
+    ["--batch", "synthetic:1,synthetic:1", "--stream", "-"],
+    ["--batch", "synthetic:1,synthetic:1", "--cloud-out", "c.ply"],
+    ["--synthetic", "1", "--chunk-sweeps", "2", "--stream", "-"],
+    ["--synthetic", "1", "--chunk-sweeps", "2", "--cloud-out", "c.ply"],
+    ["--synthetic", "1", "--chunk-sweeps", "2", "--residual-hist"],
+    ["--synthetic", "1", "--chunk-sweeps", "3", "--verbose", "--cloud-out", "c.ply"],
+])
+def test_cli_refuses_incompatible_modes(argv, capsys):
+    """The JAX CLI's usage errors, word for word, before any work starts."""
+    from wildcat_slam_tpu import cli as jax_cli
+    from wildcat_slam_tpu_torch import cli
+
+    errors = []
+    for main in (jax_cli.main, cli.main):
+        with pytest.raises(SystemExit) as exc:
+            main([*argv, "--device", "cpu"])
+        assert exc.value.code == 2
+        errors.append([ln for ln in capsys.readouterr().err.splitlines() if "error:" in ln])
+    assert len(errors[1]) == 1 and "incompatible with" in errors[1][0]
+    assert errors[1][0].split("error:")[1] == errors[0][0].split("error:")[1]
+
+
+@pytest.mark.parametrize("kw", [dict(chunk_sweeps=0), dict(chunk_sweeps=-2),
+                                dict(chunk_sweeps=2, collect_clouds=True),
+                                dict(chunk_sweeps=4, debug_residuals=True)])
+def test_frontend_refuses_what_jax_refuses(kw):
+    from wildcat_slam_tpu.config import WildcatConfig as JaxConfig
+    from wildcat_slam_tpu.odometry.pipeline import LidarOdometry as JaxOdometry
+    from wildcat_slam_tpu_torch.config import WildcatConfig
+    from wildcat_slam_tpu_torch.odometry.pipeline import LidarOdometry
+
+    kw = dict(kw)
+    cfg_kw = dict(max_points_per_sweep=64, max_surfels_sliding=64, max_surfels_fixed=64,
+                  debug_residuals=kw.pop("debug_residuals", False))
+    with pytest.raises(ValueError, match="chunk_sweeps") as jax_err:
+        JaxOdometry(JaxConfig(**cfg_kw), **kw)
+    with pytest.raises(ValueError, match="chunk_sweeps") as err:
+        LidarOdometry(WildcatConfig(**cfg_kw), device="cpu", **kw)
+    assert str(err.value) == str(jax_err.value)
 
 
 def test_cuda_tensor_without_card_is_refused():

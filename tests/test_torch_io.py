@@ -1,17 +1,18 @@
 """The port's numpy-only modules against the JAX package's originals.
 
 ``wildcat_slam_tpu_torch.config``, ``.io``, ``.utils.histogram``,
-``.odometry._ptbuf`` and the host ``ImuResampler`` are copies so that the
+``.viz.surfel_export``, ``.odometry._ptbuf`` and the host ``ImuResampler`` are copies so that the
 port imports nothing of the JAX package; these tests hold each copy to its
 original: equal config fields and checks, bit-equal synthetic sequences and
 ATE, the same point-buffer output and checkpoint dumps, the same resampler
 state, datasets and trajectory files that the JAX package reads back, framed
 streams and ROS bags that each package reads from the other, and the same
-residual histograms.
+residual histograms, and the same surfel and cloud PLY files.
 """
 
 import dataclasses
 import io
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -25,6 +26,7 @@ from wildcat_slam_tpu.io import trajectory as jtraj
 from wildcat_slam_tpu.odometry import _ptbuf as jbuf
 from wildcat_slam_tpu.odometry.imu import ImuResampler as JaxResampler
 from wildcat_slam_tpu.utils import histogram as jhist
+from wildcat_slam_tpu.viz import surfel_export as jexport
 from wildcat_slam_tpu_torch import config as tcfg
 from wildcat_slam_tpu_torch.io import dataset as tds
 from wildcat_slam_tpu_torch.io import rosbag as tbag
@@ -34,6 +36,7 @@ from wildcat_slam_tpu_torch.io import trajectory as ttraj
 from wildcat_slam_tpu_torch.odometry import _ptbuf as tbuf
 from wildcat_slam_tpu_torch.odometry.imu import ImuResampler
 from wildcat_slam_tpu_torch.utils import histogram as thist
+from wildcat_slam_tpu_torch.viz import surfel_export as texport
 
 
 def test_config_fields_and_defaults_match_jax():
@@ -195,3 +198,31 @@ def test_histogram_copy_matches_jax():
     assert thist.residual_report("surfel", v) == jhist.residual_report("surfel", v)
     for vals in (np.zeros(0), np.ones(4)):
         assert str(thist.Histogram().add(vals)) == str(jhist.Histogram().add(vals))
+
+
+@pytest.mark.parametrize("n_surfels", [0, 40])
+def test_surfel_export_copy_matches_jax(tmp_path, n_surfels):
+    """Byte-equal PLY files from the same host surfels (some invalid, more than
+    max_surfels valid) and the same cloud, with and without colours."""
+    rng = np.random.default_rng(n_surfels)
+    a = rng.normal(size=(n_surfels, 3, 3))
+    cov = 0.01 * a @ a.transpose(0, 2, 1)
+    nrm = rng.normal(size=(n_surfels, 3))
+    nrm /= np.maximum(np.linalg.norm(nrm, axis=1, keepdims=True), 1e-12)
+    ctr = rng.uniform(-5.0, 5.0, (n_surfels, 3))
+    surf = SimpleNamespace(valid=rng.random(n_surfels) < 0.8, t=rng.random(n_surfels),
+                           center_world=lambda: ctr, cov_world=lambda: cov,
+                           norm_world=lambda: nrm)
+    pts = rng.normal(size=(n_surfels * 10, 3)).astype(np.float32)
+    rgb = rng.integers(0, 256, (len(pts), 3))
+    counts = []
+    for mod, tag in ((jexport, "jax"), (texport, "port")):
+        counts.append(mod.save_surfels_ply(str(tmp_path / f"{tag}_s.ply"), surf, max_surfels=25))
+        mod.save_cloud_ply(str(tmp_path / f"{tag}_c.ply"), pts)
+        mod.save_cloud_ply(str(tmp_path / f"{tag}_rgb.ply"), pts, rgb)
+    assert counts[0] == counts[1] == min(int(surf.valid.sum()), 25)
+    for name in ("s", "c", "rgb"):
+        assert (tmp_path / f"port_{name}.ply").read_bytes() == \
+            (tmp_path / f"jax_{name}.ply").read_bytes()
+    e_t, e_j = texport.surfel_ellipsoids(surf), jexport.surfel_ellipsoids(surf)
+    assert e_t.keys() == e_j.keys() and all(np.array_equal(e_t[k], e_j[k]) for k in e_t)

@@ -283,3 +283,61 @@ def test_small_pipeline_on_card_launches_both_kernels(cuda_device):
     assert lo.sweep_id >= 3
     assert pcg.LAUNCHES > 0 and knn.LAUNCHES > 0
     assert ate_rmse(lo.trajectory, lambda t: seq.gt_pose(t)[0], align=False) < 0.02
+
+
+def test_wrappers_enter_the_tensors_card(cuda_device, monkeypatch):
+    """Each wrapper makes its tensors' card current around the C entry, which
+    launches on the current card (a window on another card than the current
+    one would otherwise launch on the wrong one)."""
+    entered = []
+    real = torch.cuda.device
+
+    class Recording(real):
+        def __enter__(self):
+            entered.append(self.idx)
+            return super().__enter__()
+
+    monkeypatch.setattr(torch.cuda, "device", Recording)
+    h_np, b_np = _random_system(8, 8)
+    h, b = torch.as_tensor(h_np, device=cuda_device), torch.as_tensor(b_np, device=cuda_device)
+    dlam = 1e-3 * torch.diagonal(h)
+    pcg.pcg_solve(h, dlam, pcg.block_diag_inverse(h, dlam, 8), b, 4, 1e-2)
+    rng = np.random.default_rng(0)
+    dq = torch.as_tensor(_cloud(rng, 300), device=cuda_device)
+    dt = torch.as_tensor(_cloud(rng, 1024), device=cuda_device)
+    knn.knn_bins(dq, dt, 512)
+    knn.knn_bins_mxu(*knn.mxu_embedding(dq, dt), 512)
+    assert entered == [cuda_device.index] * 3  # before synchronize, which enters one too
+    torch.cuda.synchronize()
+
+
+def test_small_batch_and_chain_on_card(cuda_device):
+    """Batched windows and chained sweeps on the card: each window and the
+    chained run give the single-window trajectory bit for bit."""
+    from wildcat_slam_tpu_torch.cli import feed_events, synthetic_events
+    from wildcat_slam_tpu_torch.parallel.batch import BatchedOdometry
+
+    cfg = WildcatConfig(max_points_per_sweep=16384, max_surfels_per_sweep=512,
+                        max_surfels_sliding=2048, max_surfels_fixed=2048,
+                        max_correspondences=2048, max_leaves_per_sweep=4096,
+                        max_imu_states=640, max_sample_states=48, inner_iter_num_max=25)
+    events = [list(synthetic_events(SyntheticSequence(duration=d, points_per_scan=4000,
+                                                      room_half=4.0, seed=s)))
+              for s, d in ((0, 2.1), (1, 1.6))]
+    singles = []
+    for ev in events:
+        lo = LidarOdometry(cfg, device=cuda_device)
+        feed_events(lo, ev)
+        singles.append(lo.trajectory)
+    bo = BatchedOdometry(cfg, batch=2, device=cuda_device)
+    assert bo.mesh == [torch.device("cuda", 0)]
+    for i, ev in enumerate(events):
+        for e in ev:
+            (bo.add_imu if e[0] == "imu" else bo.add_scan)(i, *e[1:])
+    bo.finish()
+    chained = LidarOdometry(cfg, device=cuda_device, chunk_sweeps=3)
+    feed_events(chained, events[0])
+    for got, ref in zip(bo.trajectories + [chained.trajectory], singles + singles[:1]):
+        assert len(got) == len(ref) >= 3
+        assert all(t1 == t2 and np.array_equal(p1, p2) and np.array_equal(q1, q2)
+                   for (t1, p1, q1), (t2, p2, q2) in zip(got, ref))

@@ -141,5 +141,6 @@ def test_remap_inert_on_the_room():
 
 
 def test_unported_options_rejected():
-    with pytest.raises(NotImplementedError, match="chunk_sweeps"):
-        LidarOdometry(_small_cfg(), device="cpu", chunk_sweeps=3)
+    """The native host feeder is the frontend's one option still unported."""
+    with pytest.raises(TypeError, match="use_native"):
+        LidarOdometry(_small_cfg(), device="cpu", use_native=True)

@@ -11,10 +11,14 @@ Mirrors the JAX package's layout, one module per counterpart:
 - ``odometry`` -- states, IMU propagation, window management, surfel
                   extraction, matching, factors, the LM solver and the
                   host-facing ``LidarOdometry`` pipeline.
-- ``io``       -- synthetic sequences, dataset replay, TUM trajectories.
+- ``parallel`` -- batched windows in lockstep over the CUDA cards.
+- ``io``       -- synthetic sequences, dataset replay, ROS bags, framed
+                  streams, TUM trajectories.
+- ``viz``      -- surfel and point-cloud PLY exports.
+- ``utils``    -- residual histograms, stage timers and torch.profiler traces.
 - ``config``   -- ``WildcatConfig``, the same fields and defaults as the JAX
                   package's.
-- ``cli``      -- the offline command-line entry point.
+- ``cli``      -- the command-line entry point.
 
 The port imports torch and never jax, nor anything of the JAX package.
 """

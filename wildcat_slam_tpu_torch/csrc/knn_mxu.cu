@@ -467,16 +467,17 @@ extern "C" int wc_knn_mxu(const float* dq_aug, const float* dtt_aug, float* stag
   const long long n_tiles = (long long)((nq + kQueryTile - 1) / kQueryTile) * n_bt;
   if (n_tiles > 0x7fffffff || grid > n_tiles) return (int)cudaErrorInvalidValue;
   // the ring and the staged outputs are above the 48 KB a block gets without
-  // asking: ask once per device
-  static thread_local int ready_dev = -1;
+  // asking: ask once per device (a bit each; the caller makes the tensors'
+  // card current)
+  static thread_local unsigned long long ready_devs = 0;
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
-  if (dev != ready_dev) {
+  if (dev >= 64 || !(ready_devs >> dev & 1ull)) {
     err = cudaFuncSetAttribute(knn_mxu_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                kSmemBytes);
     if (err != cudaSuccess) return (int)err;
-    ready_dev = dev;
+    if (dev < 64) ready_devs |= 1ull << dev;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long cols = (long long)ngroups * nb_pad;

@@ -395,12 +395,18 @@ extern "C" int wc_pcg_solve(const float* h, const float* dlam, const float* minv
       (long long)smem_bytes < 4LL * n * (1 + (long long)kB * resident))
     return (int)cudaErrorInvalidValue;
   // the card's limits and the kernel's occupancy, queried once per device and
-  // shared-memory size (these queries cost more host time than the launch)
-  static thread_local int last_dev = -1, last_smem = -1, last_blocks = 0;
+  // shared-memory size (these queries cost more host time than the launch);
+  // the cache is keyed by the device, so windows on several cards stepped in
+  // turn do not query again. The caller makes the tensors' card current
+  constexpr int kCachedDevices = 64;
+  static thread_local int cached_smem[kCachedDevices] = {};
+  static thread_local int cached_blocks[kCachedDevices] = {};
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return (int)e;
-  if (dev != last_dev || smem_bytes != last_smem) {
+  const bool cached = dev < kCachedDevices && cached_smem[dev] == smem_bytes;
+  int blocks = cached ? cached_blocks[dev] : 0;
+  if (!cached) {
     int coop = 0, sms = 0, optin = 0, per_sm = 0;
     cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
     if (!coop) return (int)cudaErrorNotSupported;
@@ -415,11 +421,13 @@ extern "C" int wc_pcg_solve(const float* h, const float* dlam, const float* minv
     if (e != cudaSuccess) return (int)e;
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, pcg_kernel, kThreads, smem_bytes);
     if (e != cudaSuccess) return (int)e;
-    last_dev = dev;
-    last_smem = smem_bytes;
-    last_blocks = per_sm * sms;
+    blocks = per_sm * sms;
+    if (dev < kCachedDevices) {
+      cached_smem[dev] = smem_bytes;
+      cached_blocks[dev] = blocks;
+    }
   }
-  if (grid > last_blocks) return (int)cudaErrorCooperativeLaunchTooLarge;
+  if (grid > blocks) return (int)cudaErrorCooperativeLaunchTooLarge;
   PcgArgs a{h, dlam, minv, b, x, scratch, scratch + n, n, s, iters, rows_per_block, resident,
             tol2};
   void* args[] = {&a};

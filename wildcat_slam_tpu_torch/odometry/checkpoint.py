@@ -12,13 +12,17 @@ written by the JAX package.
 
 A JAX checkpoint written with ``use_native=True`` (the C++ host feeder) loads
 into the port's numpy feeder: the two feeders are output-identical
-(``tests/test_native.py``) and share the resampler state layout. The batched
-mode's files (``save_batch``/``load_batch``) wait for ``--batch``.
+(``tests/test_native.py``) and share the resampler state layout.
+
+A batch of windows (``parallel/batch.py``) saves as one single-window file
+per window (:func:`save_batch`), so either package resumes any window on its
+own, and :func:`load_batch` resumes a batch from such files.
 """
 
 from __future__ import annotations
 
 import json
+import os
 
 import numpy as np
 
@@ -40,6 +44,7 @@ def _leaf_keys(state: WindowState) -> list:
 
 def save(path: str, lo: LidarOdometry) -> None:
     """Write ``lo``'s full state to ``path`` (.npz) in the JAX package's format."""
+    lo.flush_chunks()  # chained mode: the device state must catch up with the host
     tree = window_state_to_numpy(lo.state)
     leaves = [tree[k].astype(np.int32) if k.endswith(".count") else tree[k]
               for k in _leaf_keys(lo.state)]
@@ -64,12 +69,16 @@ def save(path: str, lo: LidarOdometry) -> None:
     )
 
 
-def load(path: str, *, device) -> LidarOdometry:
-    """Restore a :class:`LidarOdometry` on ``device`` from a checkpoint written
-    by :func:`save` or by the JAX package (its config wins)."""
+def load(path: str, *, device="cuda", collect_clouds: bool = False,
+         chunk_sweeps: int = 1) -> LidarOdometry:
+    """Restore a :class:`LidarOdometry` on ``device`` (the card unless the
+    caller asks for the CPU) from a checkpoint written by :func:`save` or by
+    the JAX package (its config wins). ``collect_clouds`` and
+    ``chunk_sweeps`` set up the frontend as its constructor does."""
     d = np.load(path, allow_pickle=False)
     meta = json.loads(str(d["__meta__"]))
-    lo = LidarOdometry(WildcatConfig.from_json(meta["config"]), device=device)
+    lo = LidarOdometry(WildcatConfig.from_json(meta["config"]), device=device,
+                       collect_clouds=collect_clouds, chunk_sweeps=chunk_sweeps)
     keys = _leaf_keys(lo.state)
     n = meta["n_leaves"]
     # a file from before the window state gained its trailing fix_geo cache
@@ -95,3 +104,51 @@ def load(path: str, *, device) -> LidarOdometry:
     lo.resampler.set_state(d["resampler"])
     return lo
 
+
+
+def batch_paths(path: str, n: int) -> list:
+    """Per-window file names of a batch checkpoint: ``out.npz`` ->
+    ``out.w0.npz .. out.w{n-1}.npz``. Each is a complete single-window
+    checkpoint."""
+    base, ext = os.path.splitext(path)
+    return [f"{base}.w{i}{ext or '.npz'}" for i in range(n)]
+
+
+def save_batch(path: str, bo) -> list:
+    """Checkpoint a :class:`~wildcat_slam_tpu_torch.parallel.batch.BatchedOdometry`
+    as one single-window file per window (:func:`batch_paths`); the host
+    bookkeeping lives in the embedded frontends already. Returns the paths."""
+    paths = batch_paths(path, len(bo.windows))
+    for p, w, st in zip(paths, bo.windows, bo.state):
+        w.state = st  # the window's device state is its single-window state
+        save(p, w)
+    return paths
+
+
+def load_batch(paths, *, device="cuda", n_devices: int = None):
+    """Restore a ``BatchedOdometry`` from per-window checkpoints (written by
+    :func:`save_batch`, or any set of compatible single-window files of
+    either package), each window on its device of the mesh. All files must
+    share one config and one init status: the batched step is lockstep, so a
+    mixed set cannot come from one batch run."""
+    from wildcat_slam_tpu_torch.parallel import mesh as mesh_mod
+    from wildcat_slam_tpu_torch.parallel.batch import BatchedOdometry
+
+    if n_devices is None:
+        n_devices = mesh_mod.default_n_devices(len(paths), device)
+    devs = mesh_mod.window_devices(len(paths), mesh_mod.make_mesh(n_devices, device))
+    los = [load(p, device=dev) for p, dev in zip(paths, devs)]
+    if len({lo.cfg.to_json() for lo in los}) != 1:
+        raise ValueError("batch resume: checkpoint configs differ across windows")
+    inits = {bool(lo.initialized) for lo in los}
+    if len(inits) != 1:
+        raise ValueError(
+            "batch resume: mixed window init status across checkpoints -- these files were "
+            "not written by one lockstep batch run")
+    bo = BatchedOdometry(los[0].cfg, batch=len(los), n_devices=n_devices, device=device)
+    for lo in los:
+        lo.dispatch = False  # BatchedOdometry steps; the frontends only buffer
+    bo.windows = los
+    bo.state = [lo.state for lo in los]
+    bo._initialized = inits.pop()
+    return bo

@@ -1,18 +1,23 @@
 """The odometry pipeline: host feeder + one per-sweep window step on the device.
 
-Counterpart of ``wildcat_slam_tpu/odometry/pipeline.py`` (single-window
-offline path). The host buffers sensor data, decides sweep boundaries and
-feeds padded arrays with host-computed counts (absolute times stay float64 on
-the host; the device sees window-relative times); :func:`process_sweep` runs
-IMU propagation, sample-state creation, undistortion, surfel extraction,
-window merging, matching, the LM solve and the post-solve updates.
+Counterpart of ``wildcat_slam_tpu/odometry/pipeline.py``. The host buffers
+sensor data, decides sweep boundaries and feeds padded arrays with
+host-computed counts (absolute times stay float64 on the host; the device
+sees window-relative times); :func:`process_sweep` runs IMU propagation,
+sample-state creation, undistortion, surfel extraction, window merging,
+matching, the LM solve and the post-solve updates.
 
 The JAX version donates the state to its jitted step. Here every step builds
 new tensors for the fields it changes and returns a new ``WindowState``; the
 old one is dropped by the caller, so nothing is updated in place.
 
-Not ported yet: ``chunk_sweeps > 1`` (``process_sweeps_chained``, rejected
-with ``NotImplementedError``), the native feeder, cloud collection.
+Offline replay can stage k sweeps of feeds and run them through
+:func:`process_sweeps_chained` (``LidarOdometry(chunk_sweeps=k)``): the feeds
+move to the device in one transfer per array and the k packed output rows
+come back in one copy. ``BatchedOdometry`` (``parallel/batch.py``) uses the
+frontend as a host buffer only (``dispatch = False``) and keeps exhausted
+windows in lockstep with :meth:`LidarOdometry.noop_feed`. Not ported: the
+native feeder.
 """
 
 from __future__ import annotations
@@ -83,12 +88,14 @@ def init_window(state: WindowState, imu_t, imu_acc, imu_gyr, cfg: WildcatConfig)
 
 def process_sweep(state: WindowState, imu_t, imu_acc, imu_gyr, imu_n, sample_t, sample_n,
                   pts, pts_t, pts_n, n_sample_drop, n_imu_drop, fix_first_pos,
-                  cfg: WildcatConfig):
+                  cfg: WildcatConfig, emit_cloud: bool = False):
     """One full sweep step on the device. Returns (state, outputs): outputs
     holds "packed", the (22,) float32 per-sweep outputs (layout as in the JAX
-    package), and with ``cfg.debug_residuals`` the post- and pre-solve
-    residual snapshots "residuals" and "residuals_pre" of the last outer
-    iteration (``solver.residual_snapshot``)."""
+    package), with ``cfg.debug_residuals`` the post- and pre-solve residual
+    snapshots "residuals" and "residuals_pre" of the last outer iteration
+    (``solver.residual_snapshot``), and with ``emit_cloud`` the sweep's points
+    undistorted with the post-solve poses, "pts_world" (P, 3), and their mask
+    "pts_valid" (P,)."""
     sample, imu = state.sample, state.imu
     dtype = sample.pos.dtype
     dev = sample.pos.device
@@ -177,24 +184,57 @@ def process_sweep(state: WindowState, imu_t, imu_acc, imu_gyr, imu_n, sample_t, 
     outputs = dict(packed=packed)
     if cfg.debug_residuals:
         outputs.update(residuals=res_post, residuals_pre=res_pre)
+    if emit_cloud:
+        outputs.update(pts_world=imu_mod.undistort_points(imu2, pts_t - shift, pts, sorted_t=True),
+                       pts_valid=pts_valid)
     return state.replace(sample=sample2, imu=imu2, sld=sld, fix=fix, fix_geo=fix_geo), outputs
+
+
+def process_sweeps_chained(state: WindowState, imu_t, imu_acc, imu_gyr, imu_n, sample_t,
+                           sample_n, pts, pts_t, pts_n, n_sample_drop, n_imu_drop,
+                           fix_first_pos, cfg: WildcatConfig):
+    """k sweeps in one call: every feed tensor carries a leading (k,) axis,
+    and :func:`process_sweep` runs on each slice in order (the ``lax.scan``
+    body of the JAX version). Returns ``(state, packed)`` with packed
+    (k, n_packed), one row per sweep, for the host to copy at once."""
+    feeds = (imu_t, imu_acc, imu_gyr, imu_n, sample_t, sample_n, pts, pts_t, pts_n,
+             n_sample_drop, n_imu_drop, fix_first_pos)
+    rows = []
+    for i in range(imu_t.shape[0]):
+        state, out = process_sweep(state, *(a[i] for a in feeds), cfg)
+        rows.append(out["packed"])
+    return state, torch.stack(rows)
 
 
 class LidarOdometry:
     """Host-facing odometry frontend.
 
     Usage:
-        lo = LidarOdometry(WildcatConfig(), device="cuda")
+        lo = LidarOdometry(WildcatConfig())  # on the card; device="cpu" to ask for the CPU
         lo.add_imu(t, acc, gyr)          # raw IMU, any rate
         lo.add_scan(times, points_lidar) # one lidar scan (lidar frame)
         lo.trajectory                    # [(t, pos(3), quat wxyz(4)), ...]
+
+    ``collect_clouds=True`` keeps each sweep's valid points, undistorted with
+    the post-solve poses, in ``clouds`` (one numpy array a sweep).
+
+    ``chunk_sweeps=k`` (offline replay): stage k sweeps of feeds on the host
+    and run them through one :func:`process_sweeps_chained` call. Reading
+    ``trajectory``/``stats`` runs a partial chunk first (padded with no-op
+    feeds), so read them at the end of a run. Incompatible with
+    ``collect_clouds`` and ``cfg.debug_residuals``, which need per-sweep
+    device outputs.
     """
 
-    def __init__(self, cfg: WildcatConfig = WildcatConfig(), *, device, chunk_sweeps: int = 1):
-        if chunk_sweeps != 1:
-            raise NotImplementedError(
-                "chunk_sweeps > 1 is not ported to wildcat_slam_tpu_torch yet (ROADMAP.md); "
-                "use the JAX package wildcat_slam_tpu for it")
+    def __init__(self, cfg: WildcatConfig = WildcatConfig(), *, device="cuda",
+                 collect_clouds: bool = False, chunk_sweeps: int = 1):
+        self.chunk = int(chunk_sweeps)
+        if self.chunk < 1:
+            raise ValueError(f"chunk_sweeps must be >= 1, got {chunk_sweeps}")
+        if self.chunk > 1 and (collect_clouds or cfg.debug_residuals):
+            raise ValueError(
+                "chunk_sweeps > 1 is incompatible with collect_clouds / debug_residuals: both "
+                "need per-sweep device outputs, which the chained dispatch does not emit")
         _numerics.apply()
         self.cfg = cfg
         self.device = torch.device(device)
@@ -210,6 +250,13 @@ class LidarOdometry:
         self.state = WindowState.empty(cfg, self.dtype, self.device)
         self.resampler = imu_mod.ImuResampler(cfg.imu_rate)
         self.points = ChunkedPointBuffer(cfg)
+        # dispatch=False makes the frontend a host buffer and bookkeeper only:
+        # add_scan never steps the window. BatchedOdometry
+        # (parallel/batch.py) owns the device states and steps them, reusing
+        # _ready/_prepare_feed/_commit from here
+        self.dispatch = True
+        self._feed_queue: List[tuple] = []  # (prep, prep seconds) staged, not yet run
+        self._pending: List[tuple] = []  # (back, packed on the device, host_stats, row)
         self.imu_queue: List[tuple] = []
         self._last_raw_imu_t: Optional[float] = None
         self._warned_overflow = False
@@ -222,25 +269,33 @@ class LidarOdometry:
         self.sweep_id = 0
         self._trajectory: List[tuple] = []
         self._stats: List[dict] = []
-        # host seconds per sweep: prep (feed build), step (process_sweep incl.
-        # its syncs), fetch (the packed outputs' copy to the host)
+        # host seconds: prep (feed build and its copy to the device), step
+        # (process_sweep, or process_sweeps_chained a chunk, incl. their
+        # syncs), fetch (the per-sweep path's copies of the outputs to the
+        # host; a chunk's rows are copied when trajectory/stats are read)
         self.timing = {"prep": 0.0, "step": 0.0, "fetch": 0.0, "sweeps": 0}
+        # per sweep; a chunk's sweeps each get their prep and an equal share
+        # of the chunk's step
         self.sweep_seconds: List[float] = []
         # with cfg.debug_residuals: per sweep the valid surfel residuals (M,)
         # and IMU residuals (Mi, 12) after ("surfel", "imu") and before
         # ("surfel_pre", "imu_pre") the solve, as numpy arrays
         self.residuals: List[dict] = []
+        self.clouds: Optional[List[np.ndarray]] = [] if collect_clouds else None
 
     @property
     def trajectory(self) -> List[tuple]:
+        self._flush()
         return self._trajectory
 
     @trajectory.setter
     def trajectory(self, value) -> None:  # checkpoint restore
+        self._pending = []
         self._trajectory = list(value)
 
     @property
     def stats(self) -> List[dict]:
+        self._flush()
         return self._stats
 
     def add_imu(self, t: float, acc, gyr):
@@ -265,7 +320,7 @@ class LidarOdometry:
                     f"scan starts at {times[0]:.6f} before the buffered tail "
                     f"{self.points.back_time:.6f}; scans must arrive in time order")
         self.points.add_points(times, np.ascontiguousarray(points_lidar, np.float32))
-        while self._try_process():
+        while self.dispatch and self._try_process():
             pass
 
     def _sync(self) -> bool:
@@ -319,13 +374,20 @@ class LidarOdometry:
         if not self.initialized:
             self.state = init_window(self.state, *self._to_device(self._init_args()), self.cfg)
         prep = self._prepare_feed()
+        if self.chunk > 1:
+            # chained mode: stage the feed; run once a full chunk is staged
+            self._feed_queue.append((prep, time.perf_counter() - tm0))
+            self.timing["prep"] += self._feed_queue[-1][1]
+            if len(self._feed_queue) >= self.chunk:
+                self.flush_chunks()
+            return True
         args = self._to_device(prep["args"])
         tm1 = time.perf_counter()
-        self.state, out = process_sweep(self.state, *args, self.cfg)
+        self.state, out = process_sweep(self.state, *args, self.cfg,
+                                        emit_cloud=self.clouds is not None)
         tm2 = time.perf_counter()
-        self._commit(out["packed"].cpu(), prep["back"], prep["host_stats"])  # one D2H copy per sweep
-        if "residuals" in out:
-            self.residuals.append(_residual_entry(out["residuals"], out["residuals_pre"]))
+        self._commit(out, prep["back"], prep["host_stats"])
+        self._flush()  # one D2H copy of the packed outputs per sweep
         tm3 = time.perf_counter()
         self.timing["prep"] += tm1 - tm0
         self.timing["step"] += tm2 - tm1
@@ -333,6 +395,28 @@ class LidarOdometry:
         self.timing["sweeps"] += 1
         self.sweep_seconds.append(tm3 - tm0)
         return True
+
+    def flush_chunks(self) -> None:
+        """Run the staged sweeps (chained mode) as one chunk, padded with
+        no-op feeds to ``chunk_sweeps``: the padding rows' outputs are
+        discarded, their solves only refine the window state after every real
+        sweep's pose. Reading ``trajectory``/``stats`` calls this; nothing
+        happens when no sweep is staged."""
+        if not self._feed_queue:
+            return
+        queued, self._feed_queue = self._feed_queue, []
+        tm0 = time.perf_counter()
+        feeds = [p["args"] for p, _ in queued]
+        feeds += [self.noop_feed() for _ in range(self.chunk - len(feeds))]
+        stacked = self._to_device([np.stack([f[j] for f in feeds]) for j in range(len(feeds[0]))])
+        self.state, packed = process_sweeps_chained(self.state, *stacked, self.cfg)
+        share = (time.perf_counter() - tm0) / len(queued)
+        for i, (p, prep_s) in enumerate(queued):
+            self._pending.append((p["back"], packed, p["host_stats"], i))
+            self.sweep_id += 1
+            self.sweep_seconds.append(prep_s + share)
+        self.timing["step"] += share * len(queued)
+        self.timing["sweeps"] += len(queued)
 
     def _prepare_feed(self) -> dict:
         """Build one sweep's padded feed arrays and commit the sweep's host
@@ -424,17 +508,58 @@ class LidarOdometry:
             host_stats=dict(n_points_in=n_avail, n_points_fed=n_pts_cap,
                             n_points_dropped=n_pts_dropped))
 
-    def _commit(self, packed: torch.Tensor, back: float, host_stats: dict) -> None:
-        v = packed.numpy().astype(np.float64)
-        self._trajectory.append((back, v[0:3], v[3:7]))
-        warn = self.cfg.degeneracy_warn_ratio
-        self._stats.append(dict(
-            shift=v[7], iterations=int(v[8]), initial_cost=v[9], final_cost=v[10],
-            n_new_surfels=int(v[11]), n_pairs_sld=int(v[12]), n_pairs_fix=int(v[13]),
-            pose_pos_pred=v[14:17], n_surfels_dropped=int(v[17]), n_pairs_dropped=int(v[18]),
-            deg_trans_ratio=v[19], deg_rot_ratio=v[20], lm_lambda_final=v[21],
-            degenerate=bool(warn > 0 and min(v[19], v[20]) < warn), **host_stats))
+    def noop_feed(self) -> tuple:
+        """A zero-count feed with the sweep's static shapes: propagates no IMU,
+        adds no sample states or points, trims nothing. The step still runs
+        (its solve refines the window) with every input masked out. Pads a
+        partial chunk, and keeps exhausted windows of ``BatchedOdometry`` in
+        lockstep (parallel/batch.py)."""
+        cfg = self.cfg
+        np_dtype = self._np_dtype
+        kmax = int(cfg.sweep_duration * cfg.imu_rate) + 32
+        amax = int(cfg.sweep_duration / cfg.sample_dt) + 8
+        cap_p = cfg.max_points_per_sweep
+        zero = np.int64(0)
+        return (np.zeros((kmax,), np_dtype), np.zeros((kmax, 3), np_dtype),
+                np.zeros((kmax, 3), np_dtype), zero, np.zeros((amax,), np_dtype), zero,
+                np.zeros((cap_p, 3), np_dtype), np.zeros((cap_p,), np_dtype), zero, zero, zero,
+                np.bool_(self.fix_first))
+
+    def _commit(self, out: dict, back: float, host_stats: dict) -> None:
+        """Bookkeeping of one stepped sweep: its packed outputs stay on the
+        device until :meth:`_flush` copies them (the per-sweep path flushes
+        at once; ``BatchedOdometry`` when trajectory/stats are read); residual
+        snapshots and clouds are copied to the host here."""
+        self._pending.append((back, out["packed"], host_stats, None))
+        if "residuals" in out:
+            self.residuals.append(_residual_entry(out["residuals"], out["residuals_pre"]))
+        if self.clouds is not None:
+            self.clouds.append(out["pts_world"].cpu().numpy()[out["pts_valid"].cpu().numpy()])
         self.sweep_id += 1
+
+    def _flush(self) -> None:
+        """Run staged sweeps, then copy every pending packed output to the
+        host, one copy a device tensor (a chunk's rows share one), and append
+        the trajectory and stats entries in sweep order."""
+        self.flush_chunks()
+        if not self._pending:
+            return
+        pending, self._pending = self._pending, []
+        fetched = {}
+        for _, packed, _, _ in pending:
+            if id(packed) not in fetched:
+                fetched[id(packed)] = packed.cpu().numpy().astype(np.float64)
+        warn = self.cfg.degeneracy_warn_ratio
+        for back, packed, host_stats, row in pending:
+            v = fetched[id(packed)]
+            v = v if row is None else v[row]
+            self._trajectory.append((back, v[0:3], v[3:7]))
+            self._stats.append(dict(
+                shift=v[7], iterations=int(v[8]), initial_cost=v[9], final_cost=v[10],
+                n_new_surfels=int(v[11]), n_pairs_sld=int(v[12]), n_pairs_fix=int(v[13]),
+                pose_pos_pred=v[14:17], n_surfels_dropped=int(v[17]), n_pairs_dropped=int(v[18]),
+                deg_trans_ratio=v[19], deg_rot_ratio=v[20], lm_lambda_final=v[21],
+                degenerate=bool(warn > 0 and min(v[19], v[20]) < warn), **host_stats))
 
 
 def _residual_entry(post, pre) -> dict:

@@ -157,9 +157,10 @@ def knn_bins(dq: torch.Tensor, dt: torch.Tensor, n_bins: int):
     vals = torch.empty((q, n_bins), dtype=torch.float32, device=dq.device)
     idx = torch.empty((q, n_bins), dtype=torch.int32, device=dq.device)
     lib = _build.library()
-    stream = torch.cuda.current_stream(dq.device).cuda_stream
-    err = lib.wc_knn_bins(dqc.data_ptr(), dtt.data_ptr(), vals.data_ptr(), idx.data_ptr(),
-                          q, t, d, n_bins, *grid, stream)
+    with torch.cuda.device(dq.device):  # the C entry launches on the current card
+        err = lib.wc_knn_bins(dqc.data_ptr(), dtt.data_ptr(), vals.data_ptr(), idx.data_ptr(),
+                              q, t, d, n_bins, *grid,
+                              torch.cuda.current_stream(dq.device).cuda_stream)
     _build.check(err, "wc_knn_bins")
     LAUNCHES += 1
     return vals, idx
@@ -201,9 +202,10 @@ def knn_bins_mxu(dq_aug: torch.Tensor, dtt_aug: torch.Tensor, n_bins: int):
     vals = torch.empty((q, n_bins), dtype=torch.float32, device=dev)
     idx = torch.empty((q, n_bins), dtype=torch.int32, device=dev)
     lib = _build.library()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.wc_knn_mxu(dqc.data_ptr(), dtc.data_ptr(), staged.data_ptr(), vals.data_ptr(),
-                         idx.data_ptr(), q, t, n_bins, *plan, stream)
+    with torch.cuda.device(dev):  # the C entry launches on the current card
+        err = lib.wc_knn_mxu(dqc.data_ptr(), dtc.data_ptr(), staged.data_ptr(), vals.data_ptr(),
+                             idx.data_ptr(), q, t, n_bins, *plan,
+                             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "wc_knn_mxu")
     MXU_LAUNCHES += 1
     return vals, idx

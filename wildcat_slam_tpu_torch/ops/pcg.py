@@ -136,10 +136,11 @@ def pcg_solve(h, dlam, minv, b, iters: int, tol: float) -> torch.Tensor:
     x = torch.empty_like(b)
     scratch = torch.empty(n + 3 * plan.grid + 1, dtype=torch.float32, device=h.device)
     lib = _build.library()
-    stream = torch.cuda.current_stream(h.device).cuda_stream
-    err = lib.wc_pcg_solve(h.data_ptr(), dlam.data_ptr(), minv.data_ptr(), b.data_ptr(),
-                           x.data_ptr(), scratch.data_ptr(), n, int(iters),
-                           float(tol * tol), *plan, stream)
+    with torch.cuda.device(h.device):  # the C entry launches on the current card
+        err = lib.wc_pcg_solve(h.data_ptr(), dlam.data_ptr(), minv.data_ptr(), b.data_ptr(),
+                               x.data_ptr(), scratch.data_ptr(), n, int(iters),
+                               float(tol * tol), *plan,
+                               torch.cuda.current_stream(h.device).cuda_stream)
     _build.check(err, "wc_pcg_solve")
     LAUNCHES += 1
     return x

@@ -26,7 +26,6 @@ from __future__ import annotations
 import argparse
 import functools
 import sys
-import time
 
 import numpy as np
 import torch
@@ -40,6 +39,7 @@ from wildcat_slam_tpu_torch.odometry import factors as fmod
 from wildcat_slam_tpu_torch.odometry import imu as imu_mod
 from wildcat_slam_tpu_torch.odometry import pipeline
 from wildcat_slam_tpu_torch.odometry import window as win_mod
+from wildcat_slam_tpu_torch.utils.profiling import StageTimer
 
 # (namespace, attribute) of every stage process_sweep calls
 STAGES = [(imu_mod, "propagate"), (win_mod, "add_sample_states"), (imu_mod, "undistort_points"),
@@ -69,7 +69,8 @@ def _run(seq, device, on_sweep=None) -> pipeline.LidarOdometry:
 
 def stage_times(seq, device) -> tuple[dict, int]:
     """Sync-bounded ms per stage, summed over the sweeps after the first."""
-    totals: dict = {}
+    timer = StageTimer()
+    on_card = torch.empty(0, device=device)  # the stage waits for this card
     depth = [0]
     counting = [False]
 
@@ -80,12 +81,10 @@ def stage_times(seq, device) -> tuple[dict, int]:
                 return fn(*a, **kw)
             depth[0] += 1
             torch.cuda.synchronize()
-            t0 = time.perf_counter()
             try:
-                return fn(*a, **kw)
+                with timer.stage(name, block_on=on_card):
+                    return fn(*a, **kw)
             finally:
-                torch.cuda.synchronize()
-                totals[name] = totals.get(name, 0.0) + (time.perf_counter() - t0) * 1e3
                 depth[0] -= 1
         return wrapper
 
@@ -99,7 +98,7 @@ def stage_times(seq, device) -> tuple[dict, int]:
     finally:
         for ns, attr, fn in saved:
             setattr(ns, attr, fn)
-    return totals, lo.sweep_id - 1
+    return {name: s * 1e3 for name, s in timer.totals.items()}, lo.sweep_id - 1
 
 
 def profile(seq, device, n_total: int, n_profiled: int):
