@@ -60,7 +60,26 @@ non-zero):
                 knn_bins kernels), then cli --batch of two 4 s rooms with
                 --max-sweeps 4 --checkpoint-out, its --resume to the end, and
                 an uninterrupted run: the resumed TUM files equal the
-                uninterrupted ones.
+                uninterrupted ones;
+                (h) the C++ host feeder: LidarOdometry(use_native=True) on the
+                main path's sequence, within NATIVE_TOL of its poses, ATE
+                < 20 mm, prep ms a sweep of both feeders; then a checkpoint of
+                the native run after 8 sweeps, resumed on the native feeder,
+                equal to the uninterrupted native run bit for bit;
+                (i) the viewer and snapshots: cli --synthetic 4 --native
+                --snapshot-every 2 --surfels-out --traj-out --viewer-port 0
+                (a numbered PLY every 2 sweeps, each parses; a TUM line a
+                sweep), then a LiveViewer fed by cli.publish from (h)'s run:
+                /state holds its last pose and its surfels;
+  7. regimes -- (j) tests/test_regimes.py's sequences at its _small_cfg, each
+                held to that test's bound, unchanged: fast rotation (ATE <
+                0.05 m, on the numpy and the native feeder), world offset
+                (aligned ATE < 0.02 m), ramp travel (end error < 0.1 m after
+                > 3 m), the ramp corridor with doors (ATE < 0.08 m, every
+                final cost finite) and the bare ramp (error perpendicular to
+                the slope < 0.03 m).
+host_costs, not run by main, times the host feeder (numpy against native)
+and the live viewer on the main sequence (see its docstring).
 The script imports nothing of JAX or of the JAX package. Its last three lines
 are the card's name and power limit, a JSON object with one entry per kernel,
 and {"ok": true, "device": {...}}.
@@ -111,6 +130,13 @@ import time
 
 K1_RTOL = 1e-5
 BATCH_TOL = 1e-6  # m and quaternion units: batched or chained against single-window runs
+# m and quaternion units: the C++ feeder's float32 points against numpy's
+# (tests/test_native.py bounds the positions by it)
+NATIVE_TOL = 2e-4
+# tests/test_regimes.py's _small_cfg, the config of its regimes
+REGIME_CFG = dict(max_points_per_sweep=16384, max_surfels_per_sweep=512, max_surfels_sliding=2048,
+                  max_surfels_fixed=2048, max_correspondences=2048, max_leaves_per_sweep=4096,
+                  max_imu_states=640, max_sample_states=48, inner_iter_num_max=25)
 K1_RES_RTOL = 2e-5
 MXU_FACTOR = 16.0
 # (Q, T, n_bins) of K2 mxu's edge cases; tests/test_torch_kernels.py has the same
@@ -602,7 +628,8 @@ def phase_kernels(dev) -> None:
 def phase_main(dev) -> tuple:
     """The shipped config on the 8 s synthetic sequence. Returns the launch
     counts of this run, the kernel inputs recorded in its last sweep, its
-    trajectory and the sequence's events."""
+    trajectory, the sequence's events, its per-sweep median ms, the frontend
+    and the sequence."""
     import numpy as np
 
     from wildcat_slam_tpu_torch.cli import feed_events, synthetic_events
@@ -648,7 +675,7 @@ def phase_main(dev) -> tuple:
           f"ATE {ate * 1e3:.3f} mm unaligned (< 20 mm); launches {launches}", flush=True)
     if not (lo.sweep_id >= 10 and np.all(np.isfinite(poses)) and ate < 0.02):
         raise AssertionError(f"main path failed: sweeps={lo.sweep_id} ATE={ate}")
-    return launches, recorded, traj, events, float(np.median(steady))
+    return launches, recorded, traj, events, float(np.median(steady)), lo, seq
 
 
 def _pcg_bound(n: int, its: int) -> tuple:
@@ -1173,6 +1200,270 @@ def _read_ply(path: str) -> dict:
     return counts
 
 
+def _prep_ms(lo) -> float:
+    """``LidarOdometry.timing["prep"]`` a sweep, in ms."""
+    return lo.timing["prep"] / max(lo.timing["sweeps"], 1) * 1e3
+
+
+def phase_native(dev, main_traj, main_events, main_lo, main_seq):
+    """(h): the main sequence on the C++ host feeder (within NATIVE_TOL of the
+    main path's poses, ATE < 20 mm), then the native run checkpointed
+    after 8 sweeps and resumed on that feeder (bit-equal to the
+    uninterrupted native run). Returns the native frontend (its state on the
+    card)."""
+    import os
+    import tempfile
+
+    import numpy as np
+
+    from wildcat_slam_tpu_torch import cli
+    from wildcat_slam_tpu_torch.config import WildcatConfig
+    from wildcat_slam_tpu_torch.io import native
+    from wildcat_slam_tpu_torch.io.synthetic import ate_rmse
+    from wildcat_slam_tpu_torch.odometry import checkpoint
+    from wildcat_slam_tpu_torch.odometry.pipeline import LidarOdometry
+
+    t0 = time.perf_counter()
+    so = native.build()
+    print(f"paths (h) native feeder: {so.name} built and loaded in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    def run():
+        lo = LidarOdometry(WildcatConfig(), device=dev, use_native=True)
+        cli.feed_events(lo, main_events)
+        return lo
+
+    lo, counts = _counted("native", run)
+    gap = _traj_gap(lo.trajectory, main_traj)
+    ate = ate_rmse(lo.trajectory, lambda t: main_seq.gt_pose(t)[0], align=False)
+    med = [float(np.median(np.asarray(x.sweep_seconds[1:]) * 1e3)) for x in (main_lo, lo)]
+    print(f"paths (h) native feeder: {lo.sweep_id} sweeps, largest gap to the main path's "
+          f"positions and quaternions {gap:.3e} (bound {NATIVE_TOL:g}), ATE {ate * 1e3:.3f} mm unaligned (< 20 mm); "
+          f"prep ms a sweep (timing['prep']): numpy {_prep_ms(main_lo):.3f}, native "
+          f"{_prep_ms(lo):.3f}; per-sweep median after the first: numpy {med[0]:.2f}, native "
+          f"{med[1]:.2f} ms; launches {counts}", flush=True)
+    if not (lo.use_native and lo.sweep_id == len(main_traj) and gap <= NATIVE_TOL and ate < 0.02):
+        raise AssertionError(f"the native feeder's run failed: gap {gap}, ATE {ate}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        def round_trip():
+            lo1 = LidarOdometry(WildcatConfig(), device=dev, use_native=True)
+            n = cli.feed_events(lo1, main_events, until_sweep=8)
+            path = os.path.join(tmp, "native.npz")
+            checkpoint.save(path, lo1)
+            lo2 = checkpoint.load(path, device=dev)  # the feeder the file names
+            cli.feed_events(lo2, main_events[n:])
+            return lo2
+
+        resumed, counts = _counted("native checkpoint", round_trip)
+    same = _same_trajectory(resumed.trajectory, lo.trajectory)
+    print(f"paths (h) native checkpoint after 8 sweeps, resumed on the native feeder: "
+          f"{resumed.use_native}; {resumed.sweep_id} sweeps, trajectory equal to the "
+          f"uninterrupted native run bit for bit: {same}; launches {counts}", flush=True)
+    if not (resumed.use_native and same):
+        raise AssertionError("the resumed native run left the uninterrupted one")
+    return lo
+
+
+def phase_viewer(dev, lo) -> None:
+    """(i): cli --synthetic 4 --native with --snapshot-every 2, --surfels-out,
+    --traj-out and --viewer-port 0 (numbered PLYs that parse, a TUM line a
+    sweep), then a LiveViewer fed by cli.publish from ``lo``, a run on the
+    card: /state holds its last pose and its surfels."""
+    import contextlib
+    import io
+    import json
+    import os
+    import tempfile
+    import urllib.request
+
+    import numpy as np
+
+    from wildcat_slam_tpu_torch import cli
+    from wildcat_slam_tpu_torch.viz.live import LiveViewer
+
+    with tempfile.TemporaryDirectory() as tmp:
+        s_ply, t_txt = os.path.join(tmp, "S.ply"), os.path.join(tmp, "T.txt")
+        err = io.StringIO()
+        with contextlib.redirect_stderr(err):
+            rc, counts = _counted("cli snapshots", lambda: cli.main([
+                "--synthetic", "4", "--native", "--snapshot-every", "2", "--surfels-out", s_ply,
+                "--traj-out", t_txt, "--viewer-port", "0", "--device", "cuda"]))
+        text = err.getvalue()
+        m = re.search(r"(\d+) sweeps in", text)
+        n = int(m.group(1)) if m else 0
+        snaps = sorted(f for f in os.listdir(tmp) if re.fullmatch(r"S_\d{6}\.ply", f))
+        plys = {f: _read_ply(os.path.join(tmp, f)) for f in snaps + ["S.ply"]}
+        traj = np.loadtxt(t_txt)
+        print(f"paths (i) cli --synthetic 4 --native --snapshot-every 2 --viewer-port 0: {n} "
+              f"sweeps, snapshots {snaps} with {[plys[f]['vertex'] for f in snaps]} vertices, "
+              f"final PLY {plys['S.ply']['vertex']} vertices, TUM {traj.shape[0]} lines; "
+              f"launches {counts}", flush=True)
+        if not (rc == 0 and n >= 7 and snaps == [f"S_{k:06d}.ply" for k in range(2, n + 1, 2)]
+                and all(p["vertex"] > 0 for p in plys.values()) and traj.shape == (n, 8)
+                and "live viewer: http://localhost:" in text):
+            raise AssertionError("cli snapshots and viewer failed:\n" + text)
+
+    viewer = LiveViewer(port=0)
+    try:
+        cli.publish(viewer, lo, surfels_every=1)
+        with urllib.request.urlopen(f"http://127.0.0.1:{viewer.port}/state", timeout=10) as r:
+            st = json.loads(r.read())
+    finally:
+        viewer.close()
+    t, pos, _ = lo.trajectory[-1]
+    ok = (st["sweep"] == lo.sweep_id and st["t"] == t
+          and np.allclose(st["pose"], pos, rtol=0, atol=1e-4) and len(st["surfels"]["c"]) > 0)
+    print(f"paths (i) LiveViewer fed from the native run on the card: /state sweep {st['sweep']}, "
+          f"pose {st['pose']} (last pose {np.round(pos, 4).tolist()}), "
+          f"{len(st['surfels']['c'])} surfels", flush=True)
+    if not ok:
+        raise AssertionError(f"the viewer's state is not the run's: {st['sweep']}, {st['pose']}")
+
+
+def phase_regimes(dev) -> None:
+    """(j): tests/test_regimes.py's sequences at its _small_cfg, each held to
+    that test's bound (a value over it fails the script): fast rotation
+    (numpy and native feeder), world offset, ramp travel, the ramp corridor
+    with doors and the bare ramp."""
+    import numpy as np
+
+    from wildcat_slam_tpu_torch import cli
+    from wildcat_slam_tpu_torch.config import WildcatConfig
+    from wildcat_slam_tpu_torch.io.synthetic import SyntheticSequence, ate_rmse
+    from wildcat_slam_tpu_torch.odometry.pipeline import LidarOdometry
+
+    failed = []
+
+    def run(label, seq_kw, bound, measure, use_native=False, **cfg_kw):
+        seq = SyntheticSequence(points_per_scan=3000, seed=0, **seq_kw)
+        events = list(cli.synthetic_events(seq))
+        lo = LidarOdometry(WildcatConfig(**{**REGIME_CFG, **cfg_kw}), device=dev,
+                           use_native=use_native)
+        _, counts = _counted(label, lambda: cli.feed_events(lo, events))
+        value, ok, extra = measure(lo, seq)
+        ok = ok and value < bound and lo.sweep_id >= 3
+        print(f"regimes (j) {label}: {value:.6f} (bound {bound:g}){extra}; {lo.sweep_id} sweeps, "
+              f"launches {counts}{'' if ok else ' -- FAILED'}", flush=True)
+        if not ok:
+            failed.append(label)
+
+    def ate(align):
+        def measure(lo, seq):
+            return ate_rmse(lo.trajectory, lambda t: seq.gt_pose(t)[0], align=align), True, ""
+        return measure
+
+    def end_error(lo, seq):
+        t_end, p_end, _ = lo.trajectory[-1]
+        gt_end = seq.gt_pose(t_end)[0]
+        return (float(np.linalg.norm(p_end - gt_end)), gt_end[0] > 3.0,
+                f", ground truth travelled to x = {gt_end[0]:.3f} m (> 3)")
+
+    def finite_ate(lo, seq):
+        err, _, _ = ate(False)(lo, seq)
+        finite = all(np.isfinite(s["final_cost"]) for s in lo.stats)
+        return err, finite, f", every final_cost finite: {finite}"
+
+    def perpendicular(lo, seq):
+        d = np.array([1.0, 0.0, 0.15])
+        d /= np.linalg.norm(d)
+        errs = [np.asarray(p) - seq.gt_pose(t)[0] for t, p, _ in lo.trajectory]
+        return max(float(np.linalg.norm(e - (e @ d) * d)) for e in errs), True, ""
+
+    fast = dict(duration=2.5, room_half=4.0, rot_scale=3.0)
+    run("fast rotation, ATE unaligned (m)", fast, 0.05, ate(False))
+    run("fast rotation on the native feeder, ATE unaligned (m)", fast, 0.05, ate(False),
+        use_native=True)
+    run("world offset (400, -380, 60), ATE aligned (m)",
+        dict(duration=2.0, room_half=4.0, origin=(400.0, -380.0, 60.0)), 0.02, ate(True))
+    run("ramp travel at 1.5 m/s, end error (m)",
+        dict(duration=4.0, room_half=8.0, geometry="ramp", travel=1.5, door_spacing=10.0), 0.1,
+        end_error, max_imu_states=1024, max_sample_states=64)
+    run("ramp corridor with doors, ATE unaligned (m)",
+        dict(duration=2.5, room_half=8.0, geometry="ramp", door_spacing=10.0), 0.08, finite_ate)
+    run("bare ramp, largest error perpendicular to the slope (m)",
+        dict(duration=2.5, room_half=8.0, geometry="ramp"), 0.03, perpendicular)
+    if failed:
+        raise AssertionError(f"regimes over their tests/test_regimes.py bounds: {failed}")
+
+
+def host_costs(dev) -> None:
+    """What the host feeder and the live viewer cost on the main sequence
+    (shipped config, 8 s room, 12800 points a scan), one run after another
+    in one process after a warm-up run. The numpy and the C++ feeder
+    alternate (numpy, native, native, numpy): each run's
+    ``LidarOdometry.timing["prep"]`` a sweep, the time in its point filter
+    (``add_points``) a sweep and its per-sweep median after the first sweep.
+    Then the wall time from one sweep's end to the next (the feeding between
+    included) without and with a LiveViewer fed by ``cli.publish`` each
+    sweep (surfels every 5), alternating off, on, on, off; the median of
+    each run, and the time of the ``publish`` calls themselves, with and
+    without surfels. Not part of ``main``:
+
+        python3 -c "import runpy, torch;
+          runpy.run_path('chip_smoke.py')['host_costs'](torch.device('cuda', 0))"
+    """
+    import numpy as np
+    import torch
+
+    from wildcat_slam_tpu_torch import cli
+    from wildcat_slam_tpu_torch.config import WildcatConfig
+    from wildcat_slam_tpu_torch.io import native
+    from wildcat_slam_tpu_torch.io.synthetic import SyntheticSequence
+    from wildcat_slam_tpu_torch.odometry.pipeline import LidarOdometry
+    from wildcat_slam_tpu_torch.viz.live import LiveViewer
+
+    print(f"host costs on {_nvidia_smi()}", flush=True)
+    native.build()
+    events = list(cli.synthetic_events(SyntheticSequence(duration=8.0, points_per_scan=12800,
+                                                         room_half=5.0, seed=0)))
+    cli.feed_events(LidarOdometry(WildcatConfig(), device=dev), events, until_sweep=2)
+    torch.cuda.synchronize(dev)
+
+    for use_native in (False, True, True, False):
+        lo = LidarOdometry(WildcatConfig(), device=dev, use_native=use_native)
+        add_points, filter_s = lo.points.add_points, [0.0]
+
+        def timed(times, pts, add_points=add_points, filter_s=filter_s):
+            t0 = time.perf_counter()
+            kept = add_points(times, pts)
+            filter_s[0] += time.perf_counter() - t0
+            return kept
+
+        lo.points.add_points = timed
+        cli.feed_events(lo, events)
+        print(f"host costs, {'native' if use_native else 'numpy '} feeder: {lo.sweep_id} sweeps, "
+              f"prep {_prep_ms(lo):.4f} ms a sweep, point filter "
+              f"{filter_s[0] / lo.sweep_id * 1e3:.4f} ms a sweep, per-sweep median after the "
+              f"first {np.median(np.asarray(lo.sweep_seconds[1:]) * 1e3):.2f} ms", flush=True)
+
+    for on in (False, True, True, False):
+        viewer = LiveViewer(port=0) if on else None
+        lo = LidarOdometry(WildcatConfig(), device=dev)
+        ends, publish_ms = [], {False: [], True: []}  # keyed by: surfels sent
+        try:
+            for ev in events:
+                before = lo.sweep_id
+                (lo.add_imu if ev[0] == "imu" else lo.add_scan)(*ev[1:])
+                if lo.sweep_id > before:
+                    if viewer is not None:
+                        t0 = time.perf_counter()
+                        cli.publish(viewer, lo, surfels_every=5)
+                        publish_ms[lo.sweep_id % 5 == 0].append((time.perf_counter() - t0) * 1e3)
+                    ends.append(time.perf_counter())
+        finally:
+            if viewer is not None:
+                viewer.close()
+        ms = np.diff(ends) * 1e3
+        calls = (f"; publish: pose only median {np.median(publish_ms[False]):.3f} ms over "
+                 f"{len(publish_ms[False])} calls, with surfels "
+                 f"{np.round(publish_ms[True], 3).tolist()} ms" if on else "")
+        print(f"host costs, viewer {'on ' if on else 'off'}: {lo.sweep_id} sweeps, sweep end to "
+              f"sweep end median {np.median(ms):.2f} ms, p90 {np.percentile(ms, 90):.2f} ms; on "
+              f"the sweeps whose surfels went to the viewer: {np.round(ms[3::5], 2).tolist()}"
+              f"{calls}", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -1196,7 +1487,7 @@ def main() -> int:
         print(f"build: {line}", flush=True)
     phase_kernels(dev)
     t_main = time.perf_counter()
-    launches, recorded, main_traj, main_events, main_ms = phase_main(dev)
+    launches, recorded, main_traj, main_events, main_ms, main_lo, main_seq = phase_main(dev)
     kern = phase_replay(recorded)
     wrapper_costs(dev)
     phase_crossover(dev)
@@ -1208,10 +1499,18 @@ def main() -> int:
     phase_chained(dev, main_traj, main_events, main_ms)
     t_outputs = time.perf_counter()
     phase_outputs(dev)
+    t_native = time.perf_counter()
+    native_lo = phase_native(dev, main_traj, main_events, main_lo, main_seq)
+    t_viewer = time.perf_counter()
+    phase_viewer(dev, native_lo)
+    t_regimes = time.perf_counter()
+    phase_regimes(dev)
     t_end = time.perf_counter()
     print(f"seconds: build, kernels, main and replay {t_paths - t0:.1f}, paths (a)-(d) "
           f"{t_batch - t_paths:.1f}, (e) {t_chained - t_batch:.1f}, (f) "
-          f"{t_outputs - t_chained:.1f}, (g) {t_end - t_outputs:.1f}", flush=True)
+          f"{t_outputs - t_chained:.1f}, (g) {t_native - t_outputs:.1f}, (h) "
+          f"{t_viewer - t_native:.1f}, (i) {t_regimes - t_viewer:.1f}, (j) "
+          f"{t_end - t_regimes:.1f}", flush=True)
     bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "wildcat_slam_tpu"))
     if bad:
         raise AssertionError(f"the port imported JAX or the JAX package: {bad}")

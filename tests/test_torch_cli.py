@@ -12,9 +12,13 @@ package's CLI, given the same arguments and the same checkpoint, must write
 the same trajectory within 1e-6 (as ``test_trajectory_matches_jax``): the
 two CLIs drop the same replayed events, count ``--max-sweeps`` from the
 resume point and read the same bag topics. A checkpoint from before the
-window state's fix_geo cache loads with the cache rebuilt.
+window state's fix_geo cache loads with the cache rebuilt. ``--snapshot-every``
+writes the same files as the JAX CLI's; ``--native`` resumes on the C++ host
+feeder, and a resumed run keeps the feeder its checkpoint names. The two
+CLIs take the same options.
 """
 
+import argparse
 import json
 
 import numpy as np
@@ -151,3 +155,89 @@ def test_checkpoint_without_fix_geo_is_migrated(sources, tmp_path):
     np.savez_compressed(tmp_path / "bad.npz", **data)
     with pytest.raises(ValueError, match="checkpoint format mismatch"):
         checkpoint.load(str(tmp_path / "bad.npz"), device="cpu")
+
+
+def _ply(path):
+    """(header lines, vertex rows, face rows) of an ASCII PLY as arrays."""
+    lines = path.read_text().splitlines()
+    head = lines.index("end_header")
+    n_v = int(next(ln for ln in lines if ln.startswith("element vertex")).split()[2])
+    rows = lines[head + 1:]
+    return (lines[:head], np.array([r.split() for r in rows[:n_v]], float).reshape(-1, 6),
+            np.array([r.split() for r in rows[n_v:]], int).reshape(-1, 4))
+
+
+def test_cli_snapshots_match_jax(sources, tmp_path, capsys):
+    """--snapshot-every 2 over the resumed bag run (sweeps 2 and 3): the same
+    numbered surfel PLYs, final PLY and TUM as the JAX CLI's, the TUMs within
+    1e-6; the port's run also serves the live viewer, which changes nothing."""
+    d, ref = sources
+    for name, main, extra in (("jax", jax_cli.main, []),
+                              ("port", cli.main, ["--viewer-port", "0"])):
+        out = tmp_path / name
+        out.mkdir()
+        assert main(["--resume", str(d / "bag.npz"), "--bag", str(d / "seq.bag"), *TOPICS,
+                     "--device", "cpu", "--snapshot-every", "2", "--surfels-out",
+                     str(out / "S.ply"), "--traj-out", str(out / "T.tum"), *extra]) == 0
+    assert "live viewer: http://localhost:" in capsys.readouterr().err
+    names = sorted(p.name for p in (tmp_path / "jax").iterdir())
+    assert names == sorted(p.name for p in (tmp_path / "port").iterdir())
+    assert names == ["S.ply", "S_000002.ply", "T.tum"]
+    assert (tmp_path / "port" / "T.tum").read_text() == ref["bag"]
+    _assert_close_tum(tmp_path / "port" / "T.tum", tmp_path / "jax" / "T.tum")
+    for name in ("S.ply", "S_000002.ply"):
+        (hj, vj, fj), (hp, vp, fp) = _ply(tmp_path / "jax" / name), _ply(tmp_path / "port" / name)
+        assert hj == hp and len(vp) > 0 and np.array_equal(fj, fp)
+        np.testing.assert_allclose(vp[:, :3], vj[:, :3], rtol=0, atol=2e-4)  # 4 decimals
+        np.testing.assert_allclose(vp[:, 3:], vj[:, 3:], rtol=0, atol=1)  # uint8 colours
+
+
+def test_cli_native_resume_keeps_the_feeder(sources, tmp_path):
+    """--native resumes a numpy-feeder checkpoint on the C++ feeder; the file
+    it writes names that feeder, and resuming that file without --native
+    stays on it. The trajectory stays within 2e-4 m of the numpy run's (the
+    native feeder holds its points in float32)."""
+    from wildcat_slam_tpu_torch.io import native
+
+    if not native.available():
+        pytest.skip("the port's native feeder does not build here (no g++)")
+    d, ref = sources
+
+    def run(resume, ckpt, *extra):
+        assert cli.main(["--resume", str(resume), "--bag", str(d / "seq.bag"), "--device", "cpu",
+                         "--max-sweeps", "1", "--checkpoint-out", str(ckpt),
+                         "--traj-out", str(tmp_path / "n.tum"), *extra]) == 0
+        return json.loads(str(np.load(ckpt)["__meta__"]))["use_native"]
+
+    assert run(d / "bag.npz", tmp_path / "n1.npz", "--native") is True
+    assert run(tmp_path / "n1.npz", tmp_path / "n2.npz") is True
+    a = np.loadtxt(tmp_path / "n.tum")
+    b = np.array([[float(x) for x in ln.split()] for ln in ref["bag"].splitlines()])
+    assert a.shape == b.shape == (3, 8)
+    np.testing.assert_array_equal(a[:, 0], b[:, 0])
+    np.testing.assert_allclose(a[:, 1:4], b[:, 1:4], rtol=0, atol=2e-4)
+
+
+class _Parsed(Exception):
+    pass
+
+
+def _options(main, monkeypatch):
+    """{dest: (option strings, action, default, type, choices, nargs)} of a CLI."""
+    def grab(self, args=None, namespace=None):
+        raise _Parsed(self)
+
+    monkeypatch.setattr(argparse.ArgumentParser, "parse_args", grab)
+    with pytest.raises(_Parsed) as exc:
+        main([])
+    return {a.dest: (tuple(a.option_strings), type(a).__name__, a.default, a.type, a.choices,
+                     a.nargs) for a in exc.value.args[0]._actions}
+
+
+def test_cli_takes_the_jax_clis_options(monkeypatch):
+    """Every option of the JAX CLI, with its action, default, type and
+    choices; only --device differs (cuda/cpu against default/cpu)."""
+    jax_opts, port_opts = _options(jax_cli.main, monkeypatch), _options(cli.main, monkeypatch)
+    assert sorted(port_opts) == sorted(jax_opts)
+    assert port_opts.pop("device")[:2] == jax_opts.pop("device")[:2]
+    assert port_opts == jax_opts

@@ -31,8 +31,13 @@ PORT_MODULES = [
     "wildcat_slam_tpu_torch.io.stream", "wildcat_slam_tpu_torch.io.rosbag",
     "wildcat_slam_tpu_torch.utils.histogram", "wildcat_slam_tpu_torch.utils.profiling",
     "wildcat_slam_tpu_torch.parallel.mesh", "wildcat_slam_tpu_torch.parallel.batch",
-    "wildcat_slam_tpu_torch.viz.surfel_export",
+    "wildcat_slam_tpu_torch.viz.surfel_export", "wildcat_slam_tpu_torch.viz.live",
+    "wildcat_slam_tpu_torch.io.native",
 ]
+# JAX modules the port does not carry (ROADMAP.md, "Not to port"), and the
+# port's names of the kernels' modules
+NOT_PORTED = {"utils/vma.py"}
+KERNEL_MODULES = {"ops/pcg_pallas.py": "ops/pcg.py", "ops/knn_pallas.py": "ops/knn.py"}
 
 
 def _python(code, cwd=REPO, env_extra=None):
@@ -60,6 +65,17 @@ def test_port_imports_no_jax():
                       "print('BAD', bad)", "assert not bad, bad", ""])
     res = _python(code)
     assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_module_list_matches_jax():
+    def modules(pkg):
+        root = os.path.join(REPO, pkg)
+        return {os.path.relpath(os.path.join(d, f), root) for d, _, files in os.walk(root)
+                for f in files if f.endswith(".py") and "_build" not in d}
+
+    jax_modules = {KERNEL_MODULES.get(m, m) for m in modules("wildcat_slam_tpu") - NOT_PORTED}
+    assert jax_modules <= modules("wildcat_slam_tpu_torch"), \
+        sorted(jax_modules - modules("wildcat_slam_tpu_torch"))
 
 
 def test_numerics_pinned_by_the_frontend():
@@ -102,15 +118,6 @@ def test_chip_smoke_fails_alone(tmp_path):
     assert '"ok": true' not in _last_line(res.stdout)
 
 
-@pytest.mark.parametrize("flag", ["--native", "--viewer-port", "--snapshot-every"])
-def test_cli_rejects_unported_modes(flag):
-    from wildcat_slam_tpu_torch import cli
-
-    value = [] if flag == "--native" else ["2"]
-    with pytest.raises(NotImplementedError, match=flag):
-        cli.main(["--synthetic", "1", "--device", "cpu", flag, *value])
-
-
 @pytest.mark.parametrize("argv", [
     ["--batch", "synthetic:1,synthetic:1", "--stream", "-"],
     ["--batch", "synthetic:1,synthetic:1", "--cloud-out", "c.ply"],
@@ -118,6 +125,8 @@ def test_cli_rejects_unported_modes(flag):
     ["--synthetic", "1", "--chunk-sweeps", "2", "--cloud-out", "c.ply"],
     ["--synthetic", "1", "--chunk-sweeps", "2", "--residual-hist"],
     ["--synthetic", "1", "--chunk-sweeps", "3", "--verbose", "--cloud-out", "c.ply"],
+    ["--synthetic", "1", "--chunk-sweeps", "2", "--viewer-port", "0"],
+    ["--synthetic", "1", "--chunk-sweeps", "2", "--snapshot-every", "2", "--verbose"],
 ])
 def test_cli_refuses_incompatible_modes(argv, capsys):
     """The JAX CLI's usage errors, word for word, before any work starts."""

@@ -1,16 +1,19 @@
 """The port's numpy-only modules against the JAX package's originals.
 
 ``wildcat_slam_tpu_torch.config``, ``.io``, ``.utils.histogram``,
-``.viz.surfel_export``, ``.odometry._ptbuf`` and the host ``ImuResampler`` are copies so that the
+``.viz.surfel_export``, ``.viz.live``, ``.odometry._ptbuf`` and the host ``ImuResampler`` are copies so that the
 port imports nothing of the JAX package; these tests hold each copy to its
 original: equal config fields and checks, bit-equal synthetic sequences and
 ATE, the same point-buffer output and checkpoint dumps, the same resampler
 state, datasets and trajectory files that the JAX package reads back, framed
 streams and ROS bags that each package reads from the other, and the same
-residual histograms, and the same surfel and cloud PLY files.
+residual histograms, and the same surfel and cloud PLY files; the live
+viewer's code equal to the original's, apart from its module docstring.
 """
 
+import ast
 import dataclasses
+import inspect
 import io
 from types import SimpleNamespace
 
@@ -26,6 +29,7 @@ from wildcat_slam_tpu.io import trajectory as jtraj
 from wildcat_slam_tpu.odometry import _ptbuf as jbuf
 from wildcat_slam_tpu.odometry.imu import ImuResampler as JaxResampler
 from wildcat_slam_tpu.utils import histogram as jhist
+from wildcat_slam_tpu.viz import live as jlive
 from wildcat_slam_tpu.viz import surfel_export as jexport
 from wildcat_slam_tpu_torch import config as tcfg
 from wildcat_slam_tpu_torch.io import dataset as tds
@@ -36,6 +40,7 @@ from wildcat_slam_tpu_torch.io import trajectory as ttraj
 from wildcat_slam_tpu_torch.odometry import _ptbuf as tbuf
 from wildcat_slam_tpu_torch.odometry.imu import ImuResampler
 from wildcat_slam_tpu_torch.utils import histogram as thist
+from wildcat_slam_tpu_torch.viz import live as tlive
 from wildcat_slam_tpu_torch.viz import surfel_export as texport
 
 
@@ -226,3 +231,13 @@ def test_surfel_export_copy_matches_jax(tmp_path, n_surfels):
             (tmp_path / f"jax_{name}.ply").read_bytes()
     e_t, e_j = texport.surfel_ellipsoids(surf), jexport.surfel_ellipsoids(surf)
     assert e_t.keys() == e_j.keys() and all(np.array_equal(e_t[k], e_j[k]) for k in e_t)
+
+
+def test_live_viewer_copy_matches_jax():
+    def body(mod):
+        tree = ast.parse(inspect.getsource(mod))
+        assert isinstance(tree.body[0].value, ast.Constant)  # the module docstring
+        return ast.dump(ast.Module(body=tree.body[1:], type_ignores=[]))
+
+    assert body(tlive) == body(jlive)
+    assert tlive._PAGE == jlive._PAGE

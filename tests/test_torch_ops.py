@@ -190,6 +190,36 @@ def test_voxel_keys_and_segments():
             np.asarray(jvox.segment_start_positions(sj, ij, cap)))
 
 
+def test_voxel_keys_far_from_origin_unique():
+    """Twin of tests/test_regimes.py::TestVoxelKeysFarFromOrigin: cells at
+    +-520 m (0.2 m cells), +-100 km and the packing limit, with their
+    neighbours along each axis, map to distinct (hi, lo) keys, equal to the
+    JAX package's."""
+    rng = np.random.default_rng(0)
+    bases = np.array([[0, 0, 0], [2600, -2600, 2600], [500_000, -500_000, 1],
+                      [(1 << 19) - 3, -(1 << 19) + 2, (1 << 19) - 3]], np.int32)
+    offs = rng.integers(-1, 2, size=(64, 3)).astype(np.int32)
+    cells = np.clip((bases[:, None, :] + offs[None, :, :]).reshape(-1, 3),
+                    -(1 << 19), (1 << 19) - 1)
+    hi, lo = tvox.split_keys(torch.as_tensor(cells))
+    assert len(set(zip(hi.tolist(), lo.tolist()))) == len({tuple(c) for c in cells.tolist()})
+    hj, lj = jvox.split_keys(jnp.asarray(cells))
+    assert np.array_equal(hi.numpy(), np.asarray(hj)) and np.array_equal(lo.numpy(), np.asarray(lj))
+
+
+def test_voxel_keys_keep_lexicographic_order():
+    """Sorting by (hi, lo) equals sorting by (x, y, z) over the whole packing
+    range: extraction needs equal cells contiguous after the two-key sort."""
+    rng = np.random.default_rng(1)
+    cells = rng.integers(-(1 << 19), 1 << 19, size=(512, 3)).astype(np.int32)
+    hi, lo = tvox.split_keys(torch.as_tensor(cells))
+    key64 = (hi.numpy().astype(np.int64) << 30) | lo.numpy().astype(np.int64)
+    c = cells.astype(np.int64) + (1 << 19)
+    np.testing.assert_array_equal(
+        np.argsort(key64, kind="stable"),
+        np.argsort((c[:, 0] << 40) | (c[:, 1] << 20) | c[:, 2], kind="stable"))
+
+
 @pytest.mark.parametrize("dt", list(DTYPES))
 def test_rigid3(dt):
     npd, td = DTYPES[dt]

@@ -138,9 +138,3 @@ def test_remap_inert_on_the_room():
     assert len(on.trajectory) == len(off.trajectory) >= 3
     for (t1, p1, q1), (t2, p2, q2) in zip(off.trajectory, on.trajectory):
         assert t1 == t2 and np.array_equal(p1, p2) and np.array_equal(q1, q2)
-
-
-def test_unported_options_rejected():
-    """The native host feeder is the frontend's one option still unported."""
-    with pytest.raises(TypeError, match="use_native"):
-        LidarOdometry(_small_cfg(), device="cpu", use_native=True)

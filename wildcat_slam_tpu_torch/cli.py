@@ -6,16 +6,19 @@ Counterpart of ``wildcat_slam_tpu/cli.py``:
     python -m wildcat_slam_tpu_torch.cli --dataset DIR | --bag FILE.bag [--exact-knn]
         [--degeneracy-remap] [--residual-hist] [--checkpoint-out CKPT.npz]
         [--resume CKPT.npz] [--max-sweeps N] [--chunk-sweeps K] [--surfels-out S.ply]
-        [--cloud-out C.ply] [--profile DIR] [--strict] [--verbose]
+        [--cloud-out C.ply] [--profile DIR] [--native] [--snapshot-every N]
+        [--viewer-port PORT] [--viewer-surfels-every N] [--strict] [--verbose]
     python -m wildcat_slam_tpu_torch.cli --batch synthetic:8,synthetic:8:room:1,FILE.bag
         [--traj-out T.tum] [--surfels-out S.ply] [--checkpoint-out CKPT.npz]
     python -m wildcat_slam_tpu_torch.io.stream --duration 8 | \\
         python -m wildcat_slam_tpu_torch.cli --stream - --verbose
 
 The kernels run on the card unless ``--device cpu`` is given. A checkpoint
-written by either package resumes in the other. ``--native``,
-``--viewer-port`` and ``--snapshot-every`` are not ported yet and raise
-``NotImplementedError``.
+written by either package resumes in the other, on the host feeder that
+wrote it unless ``--native`` asks for the C++ one (``io/native.py``).
+``--viewer-port`` serves a live in-browser view of the run (``viz/live.py``);
+``--snapshot-every N`` writes numbered surfel PLYs next to ``--surfels-out``
+and rewrites ``--traj-out`` every N sweeps.
 """
 
 from __future__ import annotations
@@ -27,9 +30,6 @@ import time
 from types import SimpleNamespace
 
 import numpy as np
-
-# flags of the JAX package's CLI that the port does not carry yet
-_UNPORTED = ("native", "viewer_port", "snapshot_every")
 
 
 def synthetic_events(seq):
@@ -65,6 +65,18 @@ def _stats_text(st: dict) -> str:
             f"iters={st['iterations']} cost {st['initial_cost']:.3f}->{st['final_cost']:.3f} "
             f"deg={st['deg_trans_ratio']:.3f}/{st['deg_rot_ratio']:.3f}"
             + (" DEGENERATE" if st["degenerate"] else ""))
+
+
+def publish(viewer, lo, surfels_every: int) -> None:
+    """Show ``lo``'s newest pose on a ``viz.live.LiveViewer``, and every
+    ``surfels_every`` sweeps its sliding-window surfels (copied to the host)."""
+    from wildcat_slam_tpu_torch.viz.surfel_export import surfel_ellipsoids
+
+    back_t, pos, _ = lo.trajectory[-1]
+    surf = None
+    if lo.sweep_id % max(surfels_every, 1) == 0:
+        surf = surfel_ellipsoids(_host_surfels(lo.state.sld))
+    viewer.update(lo.sweep_id, float(back_t), pos, surf)
 
 
 def _host_surfels(sld):
@@ -119,10 +131,11 @@ def _run_batch(args, cfg) -> int:
             print(f"--resume: {len(paths)} checkpoint files for {len(specs)} --batch sources",
                   file=sys.stderr)
             return 2
-        bo = checkpoint.load_batch(paths, device=args.device)
+        bo = checkpoint.load_batch(paths, device=args.device,
+                                   use_native=True if args.native else None)
         cfg = bo.cfg  # the checkpoints' config wins, as in a single-window resume
     else:
-        bo = BatchedOdometry(cfg, batch=len(specs), device=args.device)
+        bo = BatchedOdometry(cfg, batch=len(specs), device=args.device, use_native=args.native)
     print(f"batch: {len(specs)} windows over {len(bo.mesh)} device(s) "
           f"({', '.join(str(d) for d in dict.fromkeys(bo.mesh))})", file=sys.stderr)
 
@@ -216,15 +229,17 @@ def _run_batch(args, cfg) -> int:
     return 0
 
 
-def _warmup(cfg, device) -> float:
-    """Build the kernels and the CUDA context before a live stream is read:
-    one sweep of a throwaway pipeline with the same config. Returns seconds."""
+def _warmup(cfg, device, use_native: bool) -> float:
+    """Build the kernels (and the native feeder) and the CUDA context before a
+    live stream is read: one sweep of a throwaway pipeline with the same
+    config. Returns seconds."""
     from wildcat_slam_tpu_torch.io.synthetic import SyntheticSequence
     from wildcat_slam_tpu_torch.odometry.pipeline import LidarOdometry
 
     t0 = time.perf_counter()
     wseq = SyntheticSequence(duration=1.2, points_per_scan=2000, room_half=5.0)
-    feed_events(LidarOdometry(cfg, device=device), synthetic_events(wseq), until_sweep=1)
+    feed_events(LidarOdometry(cfg, device=device, use_native=use_native),
+                synthetic_events(wseq), until_sweep=1)
     return time.perf_counter() - t0
 
 
@@ -255,6 +270,14 @@ def main(argv=None) -> int:
     ap.add_argument("--no-warmup", action="store_true",
                     help="skip the pre-stream warmup (the first live sweep then builds the "
                          "kernels and the CUDA context)")
+    ap.add_argument("--snapshot-every", type=int, default=None, metavar="N",
+                    help="every N sweeps: numbered surfel PLYs next to --surfels-out "
+                         "(S_000010.ply, ...) and a rewritten --traj-out")
+    ap.add_argument("--viewer-port", type=int, default=None, metavar="PORT",
+                    help="serve a live in-browser 3D view of the run on this port (trajectory "
+                         "and surfel ellipsoids, viz/live.py; 0 picks a free port)")
+    ap.add_argument("--viewer-surfels-every", type=int, default=5, metavar="N",
+                    help="refresh the viewer's surfels every N sweeps (the pose every sweep)")
     ap.add_argument("--imu-rate", type=float, default=200.0)
     ap.add_argument("--traj-out", default=None, help="write trajectory (TUM format)")
     ap.add_argument("--surfels-out", default=None,
@@ -263,11 +286,13 @@ def main(argv=None) -> int:
                     help="write the accumulated undistorted cloud (PLY)")
     ap.add_argument("--profile", default=None, metavar="DIR",
                     help="trace the run with torch.profiler into DIR/trace.json (Chrome trace)")
+    ap.add_argument("--native", action="store_true",
+                    help="use the C++ host feeder (csrc/feeder.cc, built with g++ at first use)")
     ap.add_argument("--chunk-sweeps", type=int, default=1, metavar="K",
                     help="offline replay: stage K sweeps of feeds and run them in one chained "
                          "call with one copy of their outputs. Incompatible with --stream (adds "
                          "K sweeps of latency) and the per-sweep readers --cloud-out, "
-                         "--residual-hist and --verbose")
+                         "--residual-hist, --viewer-port, --snapshot-every and --verbose")
     ap.add_argument("--max-sweeps", type=int, default=None)
     ap.add_argument("--residual-hist", action="store_true",
                     help="print pre/post-solve residual histograms per sweep")
@@ -285,18 +310,7 @@ def main(argv=None) -> int:
                          "counting them")
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     ap.add_argument("--verbose", action="store_true")
-    for flag in _UNPORTED:
-        name = "--" + flag.replace("_", "-")
-        if flag == "native":
-            ap.add_argument(name, action="store_true", help="not ported yet (NotImplementedError)")
-        else:
-            ap.add_argument(name, default=None, help="not ported yet (NotImplementedError)")
     args = ap.parse_args(argv)
-    for flag in _UNPORTED:
-        if getattr(args, flag) not in (None, False):
-            raise NotImplementedError(
-                f"--{flag.replace('_', '-')} is not ported to wildcat_slam_tpu_torch yet "
-                "(ROADMAP.md); use python -m wildcat_slam_tpu.cli")
 
     from wildcat_slam_tpu_torch.config import WildcatConfig
     from wildcat_slam_tpu_torch.odometry.pipeline import LidarOdometry, OutOfOrderError
@@ -314,6 +328,8 @@ def main(argv=None) -> int:
         bad = [f for f, on in (("--stream", args.stream is not None),
                                ("--cloud-out", bool(args.cloud_out)),
                                ("--residual-hist", args.residual_hist),
+                               ("--viewer-port", args.viewer_port is not None),
+                               ("--snapshot-every", bool(args.snapshot_every)),
                                ("--verbose", args.verbose)) if on]
         if bad:
             ap.error(f"--chunk-sweeps > 1 is incompatible with {', '.join(bad)} (per-sweep "
@@ -329,13 +345,15 @@ def main(argv=None) -> int:
         if args.exact_knn or args.degeneracy_remap or args.residual_hist:
             print("warning: --exact-knn/--degeneracy-remap/--residual-hist are ignored with "
                   "--resume (the checkpoint's config wins)", file=sys.stderr)
-        lo = checkpoint.load(args.resume, device=args.device, **frontend)
+        # the host feeder follows the checkpoint unless --native is passed
+        lo = checkpoint.load(args.resume, device=args.device,
+                             use_native=True if args.native else None, **frontend)
         cfg = lo.cfg
     else:
         cfg = WildcatConfig(imu_rate=args.imu_rate, debug_residuals=args.residual_hist,
                             match_knn_approx=not args.exact_knn,
                             degeneracy_remap=args.degeneracy_remap)
-        lo = LidarOdometry(cfg, device=args.device, **frontend)
+        lo = LidarOdometry(cfg, device=args.device, use_native=args.native, **frontend)
     timer = StageTimer()
 
     stream_reader = None  # BoundedQueueReader when --stream runs bounded
@@ -375,8 +393,27 @@ def main(argv=None) -> int:
             yield from Dataset(args.dataset)
 
     if args.stream is not None and not args.no_warmup:
-        print(f"warmup: kernels and device ready in {_warmup(cfg, args.device):.1f} s",
-              file=sys.stderr)
+        print(f"warmup: kernels and device ready in "
+              f"{_warmup(cfg, args.device, lo.use_native):.1f} s", file=sys.stderr)
+
+    viewer = None
+    if args.viewer_port is not None:
+        from wildcat_slam_tpu_torch.viz.live import LiveViewer
+
+        viewer = LiveViewer(args.viewer_port)
+        print(f"live viewer: http://localhost:{viewer.port}/", file=sys.stderr)
+
+    def snapshot() -> None:
+        if args.surfels_out:
+            from wildcat_slam_tpu_torch.viz.surfel_export import save_surfels_ply
+
+            base, ext = os.path.splitext(args.surfels_out)
+            save_surfels_ply(f"{base}_{lo.sweep_id:06d}{ext or '.ply'}",
+                             _host_surfels(lo.state.sld))
+        if args.traj_out:
+            from wildcat_slam_tpu_torch.io.trajectory import save_tum
+
+            save_tum(args.traj_out, lo.trajectory)
 
     # Field-quirk policy (as in the JAX package's CLI): the library refuses an
     # out-of-order message before it changes any state; the CLI drops and
@@ -422,18 +459,26 @@ def main(argv=None) -> int:
                 # the per-sweep path ends each sweep with its one D2H copy, so
                 # the pose is on the host (--stream runs no chunks)
                 latencies.append(time.perf_counter() - t_recv)
+                if args.snapshot_every and lo.sweep_id % args.snapshot_every == 0:
+                    snapshot()
+                if viewer is not None:
+                    publish(viewer, lo, args.viewer_surfels_every)
                 report(lo.sweep_seconds[-1])
             if args.max_sweeps and lo.sweep_id - sweeps0 >= args.max_sweeps:
                 break
         lo.trajectory  # chained mode: runs the partial tail chunk inside the timed run
         return time.perf_counter() - t0
 
-    if args.profile:
-        with trace(args.profile):
+    try:
+        if args.profile:
+            with trace(args.profile):
+                elapsed = run()
+            print(f"profile -> {os.path.join(args.profile, 'trace.json')}", file=sys.stderr)
+        else:
             elapsed = run()
-        print(f"profile -> {os.path.join(args.profile, 'trace.json')}", file=sys.stderr)
-    else:
-        elapsed = run()
+    finally:
+        if viewer is not None:
+            viewer.close()
 
     n = lo.sweep_id - sweeps0
     if any(ooo_dropped.values()):

@@ -10,9 +10,11 @@ the buffered points and the resampler state. So ``wildcat_slam_tpu``'s
 ``checkpoint.load`` resumes a file written here, and :func:`load` resumes one
 written by the JAX package.
 
-A JAX checkpoint written with ``use_native=True`` (the C++ host feeder) loads
-into the port's numpy feeder: the two feeders are output-identical
-(``tests/test_native.py``) and share the resampler state layout.
+The file records which host feeder wrote it (``use_native``: the C++ feeder
+of ``io/native.py`` or the numpy one); :func:`load` resumes on the same
+feeder unless told otherwise. Both feeders dump their buffered points and
+their resampler state in one layout, so either resumes a file of the other,
+from either package.
 
 A batch of windows (``parallel/batch.py``) saves as one single-window file
 per window (:func:`save_batch`), so either package resumes any window on its
@@ -55,7 +57,7 @@ def save(path: str, lo: LidarOdometry) -> None:
         __meta__=json.dumps(dict(n_leaves=len(leaves),
                                  host={f: getattr(lo, f) for f in _HOST_FIELDS},
                                  config=lo.cfg.to_json(), trajectory_len=len(traj),
-                                 use_native=False)),
+                                 use_native=bool(lo.use_native))),
         **{f"leaf_{i}": x for i, x in enumerate(leaves)},
         traj_t=np.asarray([e[0] for e in traj]),
         traj_pos=np.stack([e[1] for e in traj]) if traj else np.zeros((0, 3)),
@@ -69,16 +71,20 @@ def save(path: str, lo: LidarOdometry) -> None:
     )
 
 
-def load(path: str, *, device="cuda", collect_clouds: bool = False,
+def load(path: str, *, device="cuda", use_native: bool = None, collect_clouds: bool = False,
          chunk_sweeps: int = 1) -> LidarOdometry:
     """Restore a :class:`LidarOdometry` on ``device`` (the card unless the
     caller asks for the CPU) from a checkpoint written by :func:`save` or by
-    the JAX package (its config wins). ``collect_clouds`` and
+    the JAX package (its config wins). The host feeder is the one that wrote
+    the file unless ``use_native`` says otherwise. ``collect_clouds`` and
     ``chunk_sweeps`` set up the frontend as its constructor does."""
     d = np.load(path, allow_pickle=False)
     meta = json.loads(str(d["__meta__"]))
+    if use_native is None:
+        use_native = bool(meta.get("use_native", False))
     lo = LidarOdometry(WildcatConfig.from_json(meta["config"]), device=device,
-                       collect_clouds=collect_clouds, chunk_sweeps=chunk_sweeps)
+                       collect_clouds=collect_clouds, use_native=use_native,
+                       chunk_sweeps=chunk_sweeps)
     keys = _leaf_keys(lo.state)
     n = meta["n_leaves"]
     # a file from before the window state gained its trailing fix_geo cache
@@ -125,10 +131,11 @@ def save_batch(path: str, bo) -> list:
     return paths
 
 
-def load_batch(paths, *, device="cuda", n_devices: int = None):
+def load_batch(paths, *, device="cuda", use_native: bool = None, n_devices: int = None):
     """Restore a ``BatchedOdometry`` from per-window checkpoints (written by
     :func:`save_batch`, or any set of compatible single-window files of
-    either package), each window on its device of the mesh. All files must
+    either package), each window on its device of the mesh, each on the host
+    feeder that wrote it unless ``use_native`` says otherwise. All files must
     share one config and one init status: the batched step is lockstep, so a
     mixed set cannot come from one batch run."""
     from wildcat_slam_tpu_torch.parallel import mesh as mesh_mod
@@ -137,7 +144,7 @@ def load_batch(paths, *, device="cuda", n_devices: int = None):
     if n_devices is None:
         n_devices = mesh_mod.default_n_devices(len(paths), device)
     devs = mesh_mod.window_devices(len(paths), mesh_mod.make_mesh(n_devices, device))
-    los = [load(p, device=dev) for p, dev in zip(paths, devs)]
+    los = [load(p, device=dev, use_native=use_native) for p, dev in zip(paths, devs)]
     if len({lo.cfg.to_json() for lo in los}) != 1:
         raise ValueError("batch resume: checkpoint configs differ across windows")
     inits = {bool(lo.initialized) for lo in los}

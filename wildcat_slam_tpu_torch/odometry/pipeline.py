@@ -16,8 +16,9 @@ Offline replay can stage k sweeps of feeds and run them through
 move to the device in one transfer per array and the k packed output rows
 come back in one copy. ``BatchedOdometry`` (``parallel/batch.py``) uses the
 frontend as a host buffer only (``dispatch = False``) and keeps exhausted
-windows in lockstep with :meth:`LidarOdometry.noop_feed`. Not ported: the
-native feeder.
+windows in lockstep with :meth:`LidarOdometry.noop_feed`.
+``LidarOdometry(use_native=True)`` swaps the host feeder (point filtering
+and buffering, IMU resampling) for the C++ one of ``io/native.py``.
 """
 
 from __future__ import annotations
@@ -218,6 +219,12 @@ class LidarOdometry:
     ``collect_clouds=True`` keeps each sweep's valid points, undistorted with
     the post-solve poses, in ``clouds`` (one numpy array a sweep).
 
+    ``use_native=True`` swaps the host feeder (point filtering and buffering,
+    IMU resampling) for the C++ one in ``csrc/feeder.cc`` (``io/native.py``),
+    built at first use; it raises when that library cannot be built or
+    loaded. The two feeders give the same points, in float32 on the native
+    one, so trajectories agree within float32 rounding of the points.
+
     ``chunk_sweeps=k`` (offline replay): stage k sweeps of feeds on the host
     and run them through one :func:`process_sweeps_chained` call. Reading
     ``trajectory``/``stats`` runs a partial chunk first (padded with no-op
@@ -227,7 +234,8 @@ class LidarOdometry:
     """
 
     def __init__(self, cfg: WildcatConfig = WildcatConfig(), *, device="cuda",
-                 collect_clouds: bool = False, chunk_sweeps: int = 1):
+                 collect_clouds: bool = False, use_native: bool = False,
+                 chunk_sweeps: int = 1):
         self.chunk = int(chunk_sweeps)
         if self.chunk < 1:
             raise ValueError(f"chunk_sweeps must be >= 1, got {chunk_sweeps}")
@@ -248,8 +256,18 @@ class LidarOdometry:
         self.dtype = torch.float32 if cfg.dtype == "float32" else torch.float64
         self._np_dtype = np.float32 if cfg.dtype == "float32" else np.float64
         self.state = WindowState.empty(cfg, self.dtype, self.device)
-        self.resampler = imu_mod.ImuResampler(cfg.imu_rate)
-        self.points = ChunkedPointBuffer(cfg)
+        if use_native:
+            from wildcat_slam_tpu_torch.io import native
+
+            self.resampler = native.NativeResampler(cfg.imu_rate)
+            self.points = native.NativeFeeder(
+                np.asarray(cfg.ext_lidar2imu_rot, np.float64).reshape(3, 3),
+                cfg.ext_lidar2imu_pos, cfg.min_range, cfg.max_range,
+                cfg.blind_box_min, cfg.blind_box_max)
+        else:
+            self.resampler = imu_mod.ImuResampler(cfg.imu_rate)
+            self.points = ChunkedPointBuffer(cfg)
+        self.use_native = use_native
         # dispatch=False makes the frontend a host buffer and bookkeeper only:
         # add_scan never steps the window. BatchedOdometry
         # (parallel/batch.py) owns the device states and steps them, reusing

@@ -36,10 +36,11 @@ from wildcat_slam_tpu_torch.parallel import mesh as mesh_mod
 class BatchedOdometry:
     """B lockstep odometry windows over the devices of a mesh (the CUDA cards
     unless ``device="cpu"``). The batch must be a multiple of the mesh size;
-    by default the mesh is the largest device count that divides it."""
+    by default the mesh is the largest device count that divides it.
+    ``use_native`` picks each window's host feeder, as in ``LidarOdometry``."""
 
     def __init__(self, cfg: WildcatConfig = WildcatConfig(), batch: int = 2,
-                 n_devices: Optional[int] = None, device="cuda"):
+                 n_devices: Optional[int] = None, device="cuda", use_native: bool = False):
         self.cfg = cfg
         if n_devices is None:
             n_devices = mesh_mod.default_n_devices(batch, device)
@@ -50,7 +51,7 @@ class BatchedOdometry:
                 "(pass n_devices to shrink the mesh)")
         self.windows: List[LidarOdometry] = []
         for dev in mesh_mod.window_devices(batch, self.mesh):
-            w = LidarOdometry(cfg, device=dev)
+            w = LidarOdometry(cfg, device=dev, use_native=use_native)
             w.dispatch = False  # host buffering only; BatchedOdometry steps
             self.windows.append(w)
         self.state = mesh_mod.batched_window_state(cfg, batch, self.windows[0].dtype, self.mesh)
