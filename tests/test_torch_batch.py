@@ -41,6 +41,7 @@ from wildcat_slam_tpu_torch import cli
 from wildcat_slam_tpu_torch.config import WildcatConfig
 from wildcat_slam_tpu_torch.io.synthetic import SyntheticSequence
 from wildcat_slam_tpu_torch.odometry import checkpoint as tckpt
+from wildcat_slam_tpu_torch.odometry import graph as graph_mod
 from wildcat_slam_tpu_torch.odometry import pipeline as tpipe
 from wildcat_slam_tpu_torch.odometry.convert import (window_state_from_numpy,
                                                      window_state_to_numpy)
@@ -250,10 +251,19 @@ def test_cli_batch_on_resumed_checkpoints(cli_sources, capsys):
     assert cli.main(["--batch", specs, "--resume", str(d / "nope.npz"), "--device", "cpu"]) == 2
 
 
+class _NoFeed:
+    """A feed buffer that moves nothing (no card here)."""
+    slots = 1
+
+    def put(self, feeds):
+        pass
+
+
 def test_batched_step_enters_each_windows_device(monkeypatch):
-    """Each window's init and sweep run under torch.cuda.device of its card,
-    with its slice of the feed moved there (a stub step and a recording
-    device context stand in for the cards)."""
+    """Each window's init runs under torch.cuda.device of its card, with its
+    slice of the feed moved there, and each window frontend's sweep enters
+    its own card (a stub init and sweep and a recording device context stand
+    in for the cards)."""
     current, seen, puts = [None], [], []
 
     @contextlib.contextmanager
@@ -270,16 +280,20 @@ def test_batched_step_enters_each_windows_device(monkeypatch):
 
     monkeypatch.setattr(torch.cuda, "device", recording_device)
     monkeypatch.setattr(mesh_mod, "_put", put)
-    monkeypatch.setattr(mesh_mod.pipe, "process_sweep",
-                        lambda st, *a, cfg=None: (st, dict(dev=current[0], n=int(a[0]))))
     monkeypatch.setattr(mesh_mod.pipe, "init_window", lambda st, *a, cfg=None: (st, current[0]))
     mesh = [torch.device("cuda", 0), torch.device("cuda", 1)]
     assert mesh_mod.window_devices(4, mesh) == [mesh[0], mesh[0], mesh[1], mesh[1]]
     states = ["s0", "s1", "s2", "s3"]
-    _, outs = mesh_mod.make_batched_step(CFG, mesh)(states, np.arange(4))
-    assert [o["dev"] for o in outs] == [mesh[0], mesh[0], mesh[1], mesh[1]]
-    assert [o["n"] for o in outs] == [0, 1, 2, 3]
     inits = mesh_mod.make_batched_init(CFG, mesh)(states, *(np.zeros((4, 2)),) * 3)
     assert [dev for _, dev in inits] == [mesh[0], mesh[0], mesh[1], mesh[1]]
-    assert puts == [(mesh[0], mesh[0], 2), (mesh[1], mesh[1], 2)] * 2
-    assert current[0] is None
+    assert puts == [(mesh[0], mesh[0], 2), (mesh[1], mesh[1], 2)]
+    # a window's sweep on the card: its frontend's step under its own card
+    seen_steps = []
+    for dev in mesh:
+        lo = tpipe.LidarOdometry(CFG, device="cpu")
+        lo.device, lo._use_graph = dev, True
+        monkeypatch.setattr(lo, "_step", lambda lo=lo: seen_steps.append(current[0]) or
+                            dict(packed=torch.zeros(22)))
+        monkeypatch.setattr(graph_mod, "FeedBuffer", lambda *a, **kw: _NoFeed())
+        lo._sweep(lo.noop_feed())
+    assert seen_steps == mesh and current[0] is None

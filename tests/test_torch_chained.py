@@ -96,8 +96,8 @@ def test_chained_matches_per_sweep_and_jax(jax_run, per_sweep):
     lo = tpipe.LidarOdometry(CFG, device="cpu", chunk_sweeps=3)
     n = cli.feed_events(lo, EVENTS, until_sweep=3)
     assert lo.sweep_id == 3 and len(lo._feed_queue) == 0
-    # one device tensor holds the chunk's rows until the host reads them
-    assert len({id(p[1]) for p in lo._pending}) == 1 and lo._pending[0][1].shape == (3, 22)
+    # one host copy holds the chunk's rows until the host reads them
+    assert len({id(p[1]) for p in lo._pending}) == 1 and lo._pending[0][1].host.shape == (3, 22)
     cli.feed_events(lo, EVENTS[n:])
     assert lo.sweep_id == 3 and len(lo._feed_queue) == 1  # the fourth sweep is staged
     traj = lo.trajectory  # runs the padded tail chunk

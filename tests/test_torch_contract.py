@@ -15,7 +15,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT_MODULES = [
     "wildcat_slam_tpu_torch", "wildcat_slam_tpu_torch.cli", "wildcat_slam_tpu_torch._numerics",
     "wildcat_slam_tpu_torch.config", "wildcat_slam_tpu_torch.profile_sweeps",
-    "wildcat_slam_tpu_torch.probe_knn_mxu",
+    "wildcat_slam_tpu_torch.probe_knn_mxu", "wildcat_slam_tpu_torch.probe_spline_fit",
     "wildcat_slam_tpu_torch.io.synthetic", "wildcat_slam_tpu_torch.io.dataset",
     "wildcat_slam_tpu_torch.io.trajectory", "wildcat_slam_tpu_torch.odometry._ptbuf",
     "wildcat_slam_tpu_torch.ops.lie", "wildcat_slam_tpu_torch.ops.spline",
@@ -32,7 +32,8 @@ PORT_MODULES = [
     "wildcat_slam_tpu_torch.utils.histogram", "wildcat_slam_tpu_torch.utils.profiling",
     "wildcat_slam_tpu_torch.parallel.mesh", "wildcat_slam_tpu_torch.parallel.batch",
     "wildcat_slam_tpu_torch.viz.surfel_export", "wildcat_slam_tpu_torch.viz.live",
-    "wildcat_slam_tpu_torch.io.native",
+    "wildcat_slam_tpu_torch.io.native", "wildcat_slam_tpu_torch.odometry.graph",
+    "wildcat_slam_tpu_torch.ops.self_match",
 ]
 # JAX modules the port does not carry (ROADMAP.md, "Not to port"), and the
 # port's names of the kernels' modules

@@ -15,7 +15,8 @@ and the indices may differ only where the two winners' scores lie within
 that bound of each other. K1 (pcg_solve)
 sums the matvec in another order than cuBLAS, and CG amplifies that over 24
 iterations: within 1e-5 of the solution's scale; two kernel runs must give
-the same bits (no float atomics).
+the same bits (no float atomics). K3 (self_match) computes integers: its
+partners and rounds equal its plain version's bit for bit.
 """
 
 import numpy as np
@@ -26,6 +27,7 @@ from wildcat_slam_tpu_torch.config import WildcatConfig
 from wildcat_slam_tpu_torch.io.synthetic import SyntheticSequence, ate_rmse
 from wildcat_slam_tpu_torch.odometry.pipeline import LidarOdometry
 from wildcat_slam_tpu_torch.ops import knn, pcg
+from wildcat_slam_tpu_torch.ops import self_match as sm
 
 pytestmark = pytest.mark.gpu
 
@@ -255,6 +257,42 @@ def test_float64_pcg_refused_on_the_card(cuda_device):
     LidarOdometry(WildcatConfig(dtype="float64", linear_solver="pcg_xla"), device=cuda_device)
 
 
+def test_cholesky_refused_on_the_card(cuda_device):
+    """The sweep graph cannot hold cuSOLVER's float64 triangular solves: a
+    config with linear_solver='cholesky' in float64 is refused on the card
+    when the frontend is built (the CPU runs it); float32 is taken."""
+    with pytest.raises(ValueError, match="cholesky"):
+        LidarOdometry(WildcatConfig(linear_solver="cholesky", dtype="float64"), device=cuda_device)
+    LidarOdometry(WildcatConfig(linear_solver="cholesky", dtype="float64"), device="cpu")
+    LidarOdometry(WildcatConfig(linear_solver="cholesky"), device=cuda_device)
+
+
+@pytest.mark.parametrize("linear_solver", ["pcg", "cholesky"])
+def test_small_graph_run_equals_eager(cuda_device, linear_solver):
+    """A small config's run on the sweep graph equals its eager run on the
+    card (the same frontend with the graph off) bit for bit."""
+    from wildcat_slam_tpu_torch.cli import feed_events, synthetic_events
+
+    cfg = WildcatConfig(max_points_per_sweep=16384, max_surfels_per_sweep=512,
+                        max_surfels_sliding=2048, max_surfels_fixed=2048,
+                        max_correspondences=2048, max_leaves_per_sweep=4096,
+                        max_imu_states=640, max_sample_states=48, inner_iter_num_max=25,
+                        linear_solver=linear_solver)
+    events = list(synthetic_events(SyntheticSequence(duration=2.1, points_per_scan=4000,
+                                                     room_half=4.0, seed=0)))
+    runs = []
+    for graph in (True, False):
+        lo = LidarOdometry(cfg, device=cuda_device)
+        lo._use_graph = graph
+        feed_events(lo, events)
+        runs.append(lo)
+    assert runs[0]._graph is not None and runs[1]._graph is None
+    got, ref = runs[0].trajectory, runs[1].trajectory
+    assert len(got) == len(ref) >= 3
+    assert all(t1 == t2 and np.array_equal(p1, p2) and np.array_equal(q1, q2)
+               for (t1, p1, q1), (t2, p2, q2) in zip(got, ref))
+
+
 def test_pcg_kernel_refuses_what_it_cannot_hold(cuda_device):
     big = torch.zeros((1, 1), device=cuda_device).expand(12012, 12012)  # refused before any read
     with pytest.raises(ValueError, match="exceeds"):
@@ -341,3 +379,37 @@ def test_small_batch_and_chain_on_card(cuda_device):
         assert len(got) == len(ref) >= 3
         assert all(t1 == t2 and np.array_equal(p1, p2) and np.array_equal(q1, q2)
                    for (t1, p1, q1), (t2, p2, q2) in zip(got, ref))
+
+
+def _k3_inputs(case, dev):
+    """K3's inputs: random candidates, or candidates with chains written in
+    (a chain's queries each depend on the one before, so the fixed point
+    takes as many rounds as the longest chain is long; chip_smoke.k3_chains)."""
+    rng = np.random.default_rng(11)
+    q, k, p_ok, lengths = {"random": (8192, 10, 0.5, ()), "chains": (8192, 10, 0.3, [30] * 40),
+                           "long chain": (8192, 10, 0.3, [2000, 500]),
+                           "ragged": (1001, 7, 0.6, [100])}[case]
+    cand = rng.integers(0, q, size=(q, k))
+    ok = rng.random((q, k)) < p_ok
+    start = 0
+    for n in lengths:
+        for j in range(n):
+            a = start + j
+            row = [a + 1] if j == 0 else [a - 1, a + 1]
+            cand[a, :len(row)] = row
+            ok[a, :len(row)] = True
+            ok[a, len(row):] = False
+        start += n + 1
+    return torch.as_tensor(cand, device=dev), torch.as_tensor(ok, device=dev)
+
+
+@pytest.mark.parametrize("case,cap", [("random", None), ("chains", None), ("long chain", None),
+                                      ("long chain", 5), ("ragged", None)])
+def test_self_match_kernel_equals_plain(cuda_device, case, cap):
+    cand, ok = _k3_inputs(case, cuda_device)
+    cap = cap or cand.shape[0]
+    partner, rounds = sm.self_match(cand, ok, cap)
+    ref, ref_rounds = sm.self_match_plain(cand, ok, cap)
+    assert torch.equal(partner, ref) and int(rounds) == int(ref_rounds)
+    if case == "long chain":  # the chain sets the rounds, unless the cap stops them first
+        assert int(rounds) == (5 if cap == 5 else 2001)

@@ -125,9 +125,8 @@ def save_batch(path: str, bo) -> list:
     as one single-window file per window (:func:`batch_paths`); the host
     bookkeeping lives in the embedded frontends already. Returns the paths."""
     paths = batch_paths(path, len(bo.windows))
-    for p, w, st in zip(paths, bo.windows, bo.state):
-        w.state = st  # the window's device state is its single-window state
-        save(p, w)
+    for p, w in zip(paths, bo.windows):
+        save(p, w)  # each window's frontend holds its state
     return paths
 
 
@@ -155,7 +154,6 @@ def load_batch(paths, *, device="cuda", use_native: bool = None, n_devices: int 
     bo = BatchedOdometry(los[0].cfg, batch=len(los), n_devices=n_devices, device=device)
     for lo in los:
         lo.dispatch = False  # BatchedOdometry steps; the frontends only buffer
-    bo.windows = los
-    bo.state = [lo.state for lo in los]
+    bo.windows = los  # each holds its restored state
     bo._initialized = inits.pop()
     return bo

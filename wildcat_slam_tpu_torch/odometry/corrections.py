@@ -17,10 +17,30 @@ from wildcat_slam_tpu_torch.ops import lie
 from wildcat_slam_tpu_torch.ops.spline import basis
 
 
+def _solve_spd(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Solve a x = b for a symmetric positive definite (S, S) ``a`` of
+    bandwidth 2 (nothing past two diagonals from the main one) and (S, m)
+    ``b``: Gaussian elimination, then back substitution, in plain ops. No
+    pivoting: the elimination of an SPD matrix needs none. A library solve
+    does the same work, but its triangular solves (cuBLAS trsm) may allocate
+    inside a graph capture, which the sweep graph cannot hold."""
+    s = a.shape[0]
+    ab = torch.cat([a, b], 1)
+    for k in range(s - 1):
+        lo, hi = k + 1, min(k + 3, s)
+        ab[lo:hi, k:] -= (ab[lo:hi, k] / ab[k, k])[:, None] * ab[k, k:]
+    x = torch.zeros_like(b)
+    for k in range(s - 1, -1, -1):
+        hi = min(k + 3, s)
+        x[k] = (ab[k, s:] - ab[k, k + 1:hi] @ x[k + 1:hi]) / ab[k, k]
+    return x
+
+
 def fit_correction_spline(sample: SampleStates) -> torch.Tensor:
     """LS-fit B-spline control points (S, 6) through the (rot_cor, pos_cor)
     samples; the banded collocation matrix is [1, 4, 1]/6 with the boundary
-    lumping of the reference's index clamping."""
+    lumping of the reference's index clamping. Solves (N^T N) Q = N^T p, as
+    the JAX version does."""
     s = sample.capacity
     n = sample.count
     dtype = sample.cor.dtype
@@ -28,15 +48,15 @@ def fit_correction_spline(sample: SampleStates) -> torch.Tensor:
     rows = torch.arange(s, device=dev)
     live = rows < n
     nmat = torch.zeros((s, s), dtype=dtype, device=dev)
-    # one scatter per band offset: (row, col) pairs are unique within a call,
-    # so the accumulation is deterministic
+    # one add per band offset, in the JAX version's order: a clamped index
+    # lands on a neighbour's column at the ends and adds to it there
     for off, w in ((-1, 1.0 / 6.0), (0, 4.0 / 6.0), (1, 1.0 / 6.0)):
         cols = torch.minimum(torch.clamp(rows + off, min=0), n - 1)
-        wv = torch.full((s,), w, dtype=dtype, device=dev)
-        nmat.index_put_((rows, cols), torch.where(live, wv, 0.0), accumulate=True)
+        hit = (cols[:, None] == rows[None, :]) & live[:, None]
+        nmat = nmat + hit.to(dtype) * w
     nmat = torch.where(live[:, None], nmat, torch.eye(s, dtype=dtype, device=dev))
     p = torch.where(live[:, None], torch.cat([sample.cor[:, 0:3], sample.cor[:, 3:6]], 1), 0.0)
-    return torch.linalg.solve(nmat.T @ nmat, nmat.T @ p)
+    return _solve_spd(nmat.T @ nmat, nmat.T @ p)
 
 
 def eval_correction_spline(sample: SampleStates, q: torch.Tensor, query_t: torch.Tensor):
@@ -46,7 +66,7 @@ def eval_correction_spline(sample: SampleStates, q: torch.Tensor, query_t: torch
     dtype = q.dtype
     tdt = sample.t.dtype
     t0 = sample.t[0]
-    t_back = sample.t[n - 1]
+    t_back = imu_mod.row_at(sample.t, n - 1)
     qt = query_t.to(tdt)
     in_range = (qt >= t0) & (qt <= t_back)
     span = torch.clamp(t_back - t0, min=torch.finfo(tdt).tiny)
@@ -78,7 +98,7 @@ def update_imu_poses(sample: SampleStates, imu: ImuStates, dt: float) -> ImuStat
     p1, r1, a1 = g(pos, c - 3), g(rot, c - 3), g(imu.acc, c - 3)
     p2, r2 = g(pos, c - 2), g(rot, c - 2)
     g2, g3 = g(imu.gyr, c - 2), g(imu.gyr, c - 1)
-    dt2 = torch.tensor(dt * dt, dtype=pos.dtype, device=pos.device)
+    dt2 = torch.full((), dt * dt, dtype=pos.dtype, device=pos.device)
     r3 = lie.quat_mul(r2, lie.exp_quat(((g2 + g3) / 2.0 - bg) * dt))
     p3 = (lie.quat_rotate(r1, a1 - ba) + sample.grav) * dt2 + 2.0 * p2 - p1
     return imu.replace(rot=imu_mod.put_rows(rot, r3[None], c - 1),

@@ -14,6 +14,7 @@ import dataclasses
 
 import torch
 
+from wildcat_slam_tpu_torch.odometry import imu as imu_mod
 from wildcat_slam_tpu_torch.odometry.states import SampleStates, Surfels, TensorStruct
 from wildcat_slam_tpu_torch.ops import lie
 from wildcat_slam_tpu_torch.ops.eigh3 import eigh3
@@ -250,7 +251,7 @@ def build_imu_factors(imu, sample: SampleStates, max_factors: int) -> ImuFactors
     nx1 = torch.clamp(i0 + 1, max=cap - 1)
     nx2 = torch.clamp(i0 + 2, max=cap - 1)
     valid = ((i0 + 2 < imu.count) & (imu.t >= sample.t[0])
-             & (imu.t[nx2] <= sample.t[sample.count - 1]))
+             & (imu.t[nx2] <= imu_mod.row_at(sample.t, sample.count - 1)))
     il, ir, f = sample_bracket(sample, torch.stack([imu.t, imu.t[nx1], imu.t[nx2]], 1))
     order = torch.argsort((~valid).to(torch.int8), stable=True)[:max_factors]
     fac = ImuFactors(valid=valid, q1=imu.rot, q2=imu.rot[nx1], a1=imu.acc, g1=imu.gyr,

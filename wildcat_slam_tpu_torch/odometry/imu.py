@@ -88,8 +88,10 @@ def put_rows(buf: torch.Tensor, vals: torch.Tensor, start: torch.Tensor) -> torc
 
 
 def row_at(buf: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
-    """``buf[i]`` with the index clamped into range (``lax.dynamic_slice``)."""
-    return buf[torch.clamp(i, 0, buf.shape[0] - 1)]
+    """``buf[i]`` with the index clamped into range (``lax.dynamic_slice``).
+    ``i`` is a 0-dim device tensor: an index_select, since indexing with it
+    would read it on the host."""
+    return torch.index_select(buf, 0, torch.clamp(i, 0, buf.shape[0] - 1).reshape(1))[0]
 
 
 def quat_prefix_product(dq: torch.Tensor) -> torch.Tensor:
@@ -115,7 +117,7 @@ def propagate(imu: ImuStates, new_t, new_acc, new_gyr, new_count, bg, ba, grav,
     p2, r2, g2 = row_at(imu.pos, c - 1), row_at(imu.rot, c - 1), row_at(imu.gyr, c - 1)
     a2 = row_at(imu.acc, c - 1)
     dtype = imu.pos.dtype
-    dt2 = torch.tensor(dt * dt, dtype=dtype, device=imu.pos.device)
+    dt2 = torch.full((), dt * dt, dtype=dtype, device=imu.pos.device)
 
     gyr_prev = torch.cat([g2[None], new_gyr[:-1]], 0)
     dq = lie.exp_quat(((gyr_prev + new_gyr) / 2.0 - bg) * dt)

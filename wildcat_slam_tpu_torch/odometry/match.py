@@ -7,7 +7,9 @@ the reference's sequential accept loop). The k candidates per query come from
 ``ops/knn.py`` (kernel K2 on CUDA tensors), with ``approx=False`` an exact
 top-k over a full-f32 Gram. The JAX gate that sent only Q*T >= 2^30 on a TPU
 to the fused kernel was a TPU crossover; here ``approx=True`` is K2 at every
-size.
+size. The self-match's fixed point (the JAX ``lax.while_loop``) is
+``ops/self_match.py``: kernel K3, one launch that iterates on the card, on
+CUDA tensors, its plain version on CPU tensors.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import math
 import torch
 
 from wildcat_slam_tpu_torch.ops import knn as knn_mod
+from wildcat_slam_tpu_torch.ops import self_match as sm_mod
 
 
 def knn_search(cq, nq, vq, ct, nt, vt, *, center_dist: float = 1.0,
@@ -60,30 +63,15 @@ def match_surfels(cq, nq, tq, vq, ct, nt, tt, vt, *, center_dist: float = 1.0,
     cand_n = g[..., 4:7]
     cosang = torch.clip(torch.sum(nq[:, None, :] * cand_n, dim=-1), -1.0, 1.0)
     pp = torch.abs(torch.sum(nq[:, None, :] * (cq[:, None, :] - g[..., 1:4]), dim=-1))
-    cos_thr = torch.cos(torch.tensor(angular_dist, dtype=dtype, device=dev))
+    cos_thr = torch.cos(torch.full((), angular_dist, dtype=dtype, device=dev))
     ok = ((g[..., 7] > 0.5) & vq[:, None] & (torch.abs(g[..., 0] - tq[:, None]) >= time_diff)
           & (cosang >= cos_thr) & (pp <= surfel_dist))
 
     qidx = torch.arange(q_cap, device=dev)
     if self_match:
-        # fixed-point iteration of the sequential recurrence; one host sync
-        # per round for the convergence test (measured 2-4 rounds)
-        cand = knn
-        partner = torch.full((q_cap,), -1, dtype=torch.int64, device=dev)
-        for _ in range(q_cap):
-            blocks = partner > qidx
-            pc = torch.where(blocks, partner, 0)
-            contrib = (cand[pc] == qidx[:, None]) & blocks[:, None]
-            # integer scatter-add: distinct sources never collide on one slot
-            dup = torch.zeros(ok.shape, dtype=torch.int32, device=dev).index_put_(
-                (pc,), contrib.to(torch.int32), accumulate=True) > 0
-            okr = ok & ~dup
-            first = torch.argmax(okr.to(torch.int8), dim=1)
-            new = torch.where(torch.any(okr, dim=1), cand[qidx, first], -1)
-            changed = bool(torch.any(new != partner))
-            partner = new
-            if not changed:
-                break
+        # the fixed point of the sequential recurrence: kernel K3 on the card,
+        # its plain version (one host sync a round) on the CPU
+        partner, _ = sm_mod.self_match(knn, ok, q_cap)
         matched = partner != -1
     else:
         matched = torch.any(ok, dim=1)

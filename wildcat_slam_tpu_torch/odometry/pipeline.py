@@ -7,14 +7,23 @@ sees window-relative times); :func:`process_sweep` runs IMU propagation,
 sample-state creation, undistortion, surfel extraction, window merging,
 matching, the LM solve and the post-solve updates.
 
-The JAX version donates the state to its jitted step. Here every step builds
-new tensors for the fields it changes and returns a new ``WindowState``; the
-old one is dropped by the caller, so nothing is updated in place.
+The JAX version jits the step and donates the state to it. Here
+:func:`process_sweep` builds new tensors for the fields it changes and
+returns a new ``WindowState``. On a card, ``LidarOdometry`` runs its first
+sweep eagerly (the warm-up: kernels built, caches filled), then captures
+:func:`process_sweep` as CUDA graphs (``odometry/graph.py``) that read the
+state and the feed from static buffers and write the new state back into
+them, and replays them every sweep after; the feed goes to the card in one
+pinned transfer and the packed outputs come back by one copy. A capture that
+fails raises: there is no eager way out on the card. On the CPU,
+:func:`process_sweep` runs as it is.
 
-Offline replay can stage k sweeps of feeds and run them through
-:func:`process_sweeps_chained` (``LidarOdometry(chunk_sweeps=k)``): the feeds
-move to the device in one transfer per array and the k packed output rows
-come back in one copy. ``BatchedOdometry`` (``parallel/batch.py``) uses the
+Offline replay can stage k sweeps of feeds (``LidarOdometry(chunk_sweeps=k)``,
+the ``lax.scan`` of the JAX version): the k feeds move in one transfer, the
+sweep steps k times from their slots, and the k packed output rows come
+back in one copy. The CPU takes the same dispatch (feed buffer, step, host
+copy) with :func:`process_sweep` run as it is at every step.
+``BatchedOdometry`` (``parallel/batch.py``) uses the
 frontend as a host buffer only (``dispatch = False``) and keeps exhausted
 windows in lockstep with :meth:`LidarOdometry.noop_feed`.
 ``LidarOdometry(use_native=True)`` swaps the host feeder (point filtering
@@ -35,6 +44,7 @@ from wildcat_slam_tpu_torch import _numerics
 from wildcat_slam_tpu_torch.config import WildcatConfig
 from wildcat_slam_tpu_torch.odometry import corrections as cor_mod
 from wildcat_slam_tpu_torch.odometry import factors as fmod
+from wildcat_slam_tpu_torch.odometry import graph as graph_mod
 from wildcat_slam_tpu_torch.odometry import imu as imu_mod
 from wildcat_slam_tpu_torch.odometry import window as win_mod
 from wildcat_slam_tpu_torch.odometry._ptbuf import ChunkedPointBuffer
@@ -89,14 +99,19 @@ def init_window(state: WindowState, imu_t, imu_acc, imu_gyr, cfg: WildcatConfig)
 
 def process_sweep(state: WindowState, imu_t, imu_acc, imu_gyr, imu_n, sample_t, sample_n,
                   pts, pts_t, pts_n, n_sample_drop, n_imu_drop, fix_first_pos,
-                  cfg: WildcatConfig, emit_cloud: bool = False):
+                  cfg: WildcatConfig, emit_cloud: bool = False, lm_loop=None):
     """One full sweep step on the device. Returns (state, outputs): outputs
     holds "packed", the (22,) float32 per-sweep outputs (layout as in the JAX
     package), with ``cfg.debug_residuals`` the post- and pre-solve residual
     snapshots "residuals" and "residuals_pre" of the last outer iteration
     (``solver.residual_snapshot``), and with ``emit_cloud`` the sweep's points
     undistorted with the post-solve poses, "pts_world" (P, 3), and their mask
-    "pts_valid" (P,)."""
+    "pts_valid" (P,). ``lm_loop`` runs the LM iterations (``solve_window``;
+    ``odometry/graph.py`` passes the one that captures them).
+
+    The body takes no decision on the host and reads no device value there,
+    apart from the LM loop's flags in the eager ``lm_loop`` and the plain
+    versions' loops on the CPU, so that it can be captured as a CUDA graph."""
     sample, imu = state.sample, state.imu
     dtype = sample.pos.dtype
     dev = sample.pos.device
@@ -152,7 +167,7 @@ def process_sweep(state: WindowState, imu_t, imu_acc, imu_gyr, imu_n, sample_t, 
             cauchy_scale=cfg.cauchy_loss_scale, max_iterations=cfg.inner_iter_num_max,
             init_lambda=cfg.gn_initial_lambda, function_tolerance=cfg.gn_function_tolerance,
             linear_solver=cfg.linear_solver, pcg_iters=cfg.pcg_iters, pcg_tol=cfg.pcg_tol,
-            n_binary=cfg.max_correspondences, remap_proj=remap_proj)
+            n_binary=cfg.max_correspondences, remap_proj=remap_proj, lm_loop=lm_loop)
         if cfg.debug_residuals:
             res_post = residual_snapshot(sample, sfac, ifac, weights, cfg.imu_dt, sample.grav)
         stats = [sstats.iterations, sstats.initial_cost, sstats.final_cost,
@@ -179,8 +194,9 @@ def process_sweep(state: WindowState, imu_t, imu_acc, imu_gyr, imu_n, sample_t, 
     sample2, imu2, sld, fix, shift = win_mod.rebase_times(sample2, imu2, sld, fix)
 
     pose_idx = sample2.count - 1
-    f32 = lambda v: torch.as_tensor(v, device=dev).to(torch.float32).reshape(-1)
-    packed = torch.cat([f32(sample2.pos[pose_idx]), f32(sample2.rot[pose_idx]), f32(shift)]
+    f32 = lambda v: v.to(torch.float32).reshape(-1)
+    row = imu_mod.row_at
+    packed = torch.cat([f32(row(sample2.pos, pose_idx)), f32(row(sample2.rot, pose_idx)), f32(shift)]
                        + [f32(v) for v in stats] + [f32(pred_pos)] + [f32(v) for v in tail])
     outputs = dict(packed=packed)
     if cfg.debug_residuals:
@@ -191,20 +207,21 @@ def process_sweep(state: WindowState, imu_t, imu_acc, imu_gyr, imu_n, sample_t, 
     return state.replace(sample=sample2, imu=imu2, sld=sld, fix=fix, fix_geo=fix_geo), outputs
 
 
-def process_sweeps_chained(state: WindowState, imu_t, imu_acc, imu_gyr, imu_n, sample_t,
-                           sample_n, pts, pts_t, pts_n, n_sample_drop, n_imu_drop,
-                           fix_first_pos, cfg: WildcatConfig):
-    """k sweeps in one call: every feed tensor carries a leading (k,) axis,
-    and :func:`process_sweep` runs on each slice in order (the ``lax.scan``
-    body of the JAX version). Returns ``(state, packed)`` with packed
-    (k, n_packed), one row per sweep, for the host to copy at once."""
-    feeds = (imu_t, imu_acc, imu_gyr, imu_n, sample_t, sample_n, pts, pts_t, pts_n,
-             n_sample_drop, n_imu_drop, fix_first_pos)
-    rows = []
-    for i in range(imu_t.shape[0]):
-        state, out = process_sweep(state, *(a[i] for a in feeds), cfg)
-        rows.append(out["packed"])
-    return state, torch.stack(rows)
+def check_card_config(cfg: WildcatConfig) -> None:
+    """Raise for a config the card cannot run: ``linear_solver="pcg"`` takes
+    kernel K1, which is float32 only, and ``linear_solver="cholesky"`` in
+    float64 allocates inside the sweep graph's capture."""
+    if cfg.dtype != "float32" and cfg.linear_solver == "pcg":
+        raise ValueError(
+            f"dtype={cfg.dtype!r} with linear_solver='pcg' cannot run on the card: kernel K1 "
+            "(csrc/pcg.cu) takes float32; use dtype='float32', or linear_solver='pcg_xla' "
+            "for float64 there")
+    if cfg.dtype != "float32" and cfg.linear_solver == "cholesky":
+        raise ValueError(
+            f"linear_solver='cholesky' with dtype={cfg.dtype!r} cannot run on the card: the "
+            "sweep runs as one composed CUDA graph (odometry/graph.py), and cuSOLVER's float64 "
+            "triangular solves allocate memory inside its capture, which the composed graph "
+            "cannot hold; use dtype='float32', or linear_solver='pcg_xla' for float64 there")
 
 
 class LidarOdometry:
@@ -226,7 +243,8 @@ class LidarOdometry:
     one, so trajectories agree within float32 rounding of the points.
 
     ``chunk_sweeps=k`` (offline replay): stage k sweeps of feeds on the host
-    and run them through one :func:`process_sweeps_chained` call. Reading
+    and step them in one go (one feed transfer, one copy of the k output
+    rows). Reading
     ``trajectory``/``stats`` runs a partial chunk first (padded with no-op
     feeds), so read them at the end of a run. Incompatible with
     ``collect_clouds`` and ``cfg.debug_residuals``, which need per-sweep
@@ -248,14 +266,16 @@ class LidarOdometry:
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("device='cuda' requested but torch.cuda.is_available() is False")
-        if self.device.type == "cuda" and cfg.dtype != "float32" and cfg.linear_solver == "pcg":
-            raise ValueError(
-                f"dtype={cfg.dtype!r} with linear_solver='pcg' cannot run on the card: kernel K1 "
-                "(csrc/pcg.cu) takes float32; use dtype='float32', or linear_solver='pcg_xla' "
-                "or 'cholesky' for float64 there")
+        if self.device.type == "cuda":
+            check_card_config(cfg)
         self.dtype = torch.float32 if cfg.dtype == "float32" else torch.float64
         self._np_dtype = np.float32 if cfg.dtype == "float32" else np.float64
-        self.state = WindowState.empty(cfg, self.dtype, self.device)
+        # on a card the sweep is captured once and replayed (_step)
+        self._use_graph = self.device.type == "cuda"
+        self._graph: Optional[graph_mod.SweepGraph] = None
+        self._feed: Optional[graph_mod.FeedBuffer] = None
+        self._warm = False  # the first sweep on the card runs eagerly
+        self._state = WindowState.empty(cfg, self.dtype, self.device)
         if use_native:
             from wildcat_slam_tpu_torch.io import native
 
@@ -287,9 +307,8 @@ class LidarOdometry:
         self.sweep_id = 0
         self._trajectory: List[tuple] = []
         self._stats: List[dict] = []
-        # host seconds: prep (feed build and its copy to the device), step
-        # (process_sweep, or process_sweeps_chained a chunk, incl. their
-        # syncs), fetch (the per-sweep path's copies of the outputs to the
+        # host seconds: prep (feed build), step (the feed's transfer and the
+        # sweep, or a chunk's sweeps, incl. their syncs), fetch (the per-sweep path's copies of the outputs to the
         # host; a chunk's rows are copied when trajectory/stats are read)
         self.timing = {"prep": 0.0, "step": 0.0, "fetch": 0.0, "sweeps": 0}
         # per sweep; a chunk's sweeps each get their prep and an equal share
@@ -300,6 +319,21 @@ class LidarOdometry:
         # ("surfel_pre", "imu_pre") the solve, as numpy arrays
         self.residuals: List[dict] = []
         self.clouds: Optional[List[np.ndarray]] = [] if collect_clouds else None
+
+    @property
+    def state(self) -> WindowState:
+        """The window state (on the card, the captured graph's static buffers
+        once it is captured: each replay overwrites them)."""
+        return self._state
+
+    @state.setter
+    def state(self, value: WindowState) -> None:
+        # a new state (bootstrap, checkpoint restore, batch placement): the
+        # graph reads the old one's buffers, so it goes and the next sweep
+        # captures again
+        if value is not self._state:
+            self._graph = None
+        self._state = value
 
     @property
     def trajectory(self) -> List[tuple]:
@@ -382,8 +416,46 @@ class LidarOdometry:
         return args
 
     def _to_device(self, args) -> tuple:
-        """Feed arrays (numpy) as tensors on this frontend's device."""
+        """Numpy arrays as tensors on this frontend's device, one copy each
+        (the window bootstrap's three arrays; a sweep's feed goes through
+        the feed buffer, :meth:`_sweep`)."""
         return tuple(torch.as_tensor(np.asarray(a)).to(self.device) for a in args)
+
+    def _feed_buffer(self, template, slots: int) -> graph_mod.FeedBuffer:
+        """The feed buffer of ``slots`` slots, made when there is none of
+        that size (a graph reads the old one's buffer, so it goes too)."""
+        if self._feed is None or self._feed.slots != slots:
+            self._feed = graph_mod.FeedBuffer(template, self.device, slots=slots)
+            self._graph = None
+        return self._feed
+
+    def _sweep(self, args) -> dict:
+        """Step the window by one sweep's feed (numpy arrays, ``_prepare_feed``)
+        and return its outputs, "packed" as a ``graph.HostCopy``: the feed in
+        one transfer (pinned on a card), then :meth:`_step`."""
+        with graph_mod.device_guard(self.device):
+            self._feed_buffer(args, 1).put([args])
+            out = self._step()
+            return dict(out, packed=graph_mod.HostCopy(out["packed"]))
+
+    def _step(self) -> dict:
+        """One sweep from the feed buffer's slot 0. On the CPU
+        :func:`process_sweep` as it is; on a card eagerly the first time (the
+        warm-up: kernels built, caches filled), then captured once
+        (``graph.SweepGraph``) and replayed. A capture that fails raises."""
+        emit = self.clouds is not None
+        if not self._use_graph or not self._warm:
+            self._state, out = process_sweep(self._state, *self._feed.views[0], self.cfg,
+                                             emit_cloud=emit)
+            self._warm = True
+            return out
+        if self._graph is None:
+            def sweep(state, *feed, lm_loop):
+                return process_sweep(state, *feed, self.cfg, emit_cloud=emit, lm_loop=lm_loop)
+
+            self._graph = graph_mod.SweepGraph(sweep, self._state, self._feed.views[0])
+            self._state = self._graph.state
+        return self._graph.replay()
 
     def _try_process(self) -> bool:
         if not self._ready():
@@ -399,10 +471,8 @@ class LidarOdometry:
             if len(self._feed_queue) >= self.chunk:
                 self.flush_chunks()
             return True
-        args = self._to_device(prep["args"])
         tm1 = time.perf_counter()
-        self.state, out = process_sweep(self.state, *args, self.cfg,
-                                        emit_cloud=self.clouds is not None)
+        out = self._sweep(prep["args"])
         tm2 = time.perf_counter()
         self._commit(out, prep["back"], prep["host_stats"])
         self._flush()  # one D2H copy of the packed outputs per sweep
@@ -426,8 +496,7 @@ class LidarOdometry:
         tm0 = time.perf_counter()
         feeds = [p["args"] for p, _ in queued]
         feeds += [self.noop_feed() for _ in range(self.chunk - len(feeds))]
-        stacked = self._to_device([np.stack([f[j] for f in feeds]) for j in range(len(feeds[0]))])
-        self.state, packed = process_sweeps_chained(self.state, *stacked, self.cfg)
+        packed = self._chunk(feeds)
         share = (time.perf_counter() - tm0) / len(queued)
         for i, (p, prep_s) in enumerate(queued):
             self._pending.append((p["back"], packed, p["host_stats"], i))
@@ -435,6 +504,18 @@ class LidarOdometry:
             self.sweep_seconds.append(prep_s + share)
         self.timing["step"] += share * len(queued)
         self.timing["sweeps"] += len(queued)
+
+    def _chunk(self, feeds) -> graph_mod.HostCopy:
+        """A chunk: the k feeds in one transfer, then each sweep from its
+        slot (copied over slot 0, which the step reads) by :meth:`_step`;
+        the k packed rows come back in one copy."""
+        with graph_mod.device_guard(self.device):
+            self._feed_buffer(feeds[0], len(feeds)).put(feeds)
+            rows = []
+            for j in range(len(feeds)):
+                self._feed.to_slot0(j)
+                rows.append(self._step()["packed"].clone())
+            return graph_mod.HostCopy(torch.stack(rows))
 
     def _prepare_feed(self) -> dict:
         """Build one sweep's padded feed arrays and commit the sweep's host
@@ -544,10 +625,11 @@ class LidarOdometry:
                 np.bool_(self.fix_first))
 
     def _commit(self, out: dict, back: float, host_stats: dict) -> None:
-        """Bookkeeping of one stepped sweep: its packed outputs stay on the
-        device until :meth:`_flush` copies them (the per-sweep path flushes
-        at once; ``BatchedOdometry`` when trajectory/stats are read); residual
-        snapshots and clouds are copied to the host here."""
+        """Bookkeeping of one stepped sweep: its packed outputs, a
+        ``graph.HostCopy`` on its way to the host, are read by :meth:`_flush`
+        (the per-sweep path flushes at once; ``BatchedOdometry`` when
+        trajectory/stats are read); residual snapshots and clouds are copied
+        to the host here, before the next sweep's replay overwrites them."""
         self._pending.append((back, out["packed"], host_stats, None))
         if "residuals" in out:
             self.residuals.append(_residual_entry(out["residuals"], out["residuals_pre"]))
@@ -556,9 +638,9 @@ class LidarOdometry:
         self.sweep_id += 1
 
     def _flush(self) -> None:
-        """Run staged sweeps, then copy every pending packed output to the
-        host, one copy a device tensor (a chunk's rows share one), and append
-        the trajectory and stats entries in sweep order."""
+        """Run staged sweeps, then wait for every pending packed output's copy
+        to the host (a chunk's rows share one), and append the trajectory and
+        stats entries in sweep order."""
         self.flush_chunks()
         if not self._pending:
             return
@@ -566,7 +648,7 @@ class LidarOdometry:
         fetched = {}
         for _, packed, _, _ in pending:
             if id(packed) not in fetched:
-                fetched[id(packed)] = packed.cpu().numpy().astype(np.float64)
+                fetched[id(packed)] = packed.numpy().astype(np.float64)
         warn = self.cfg.degeneracy_warn_ratio
         for back, packed, host_stats, row in pending:
             v = fetched[id(packed)]

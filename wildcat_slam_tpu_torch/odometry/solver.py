@@ -4,14 +4,21 @@ Counterpart of ``wildcat_slam_tpu/odometry/solver.py``: the banded IMU normal
 equations, the structured surfel normal equations (diagonal families by
 one-hot contractions, the cross family by one (S*12 x nb) x (nb x S*12)
 product in full f32), exact symmetry of H, gauge masking, and Nielsen's
-gain-ratio LM schedule. The ``lax.while_loop`` becomes a Python loop with
-one host sync per LM iteration (at most ``max_iterations``, typically ~4).
+gain-ratio LM schedule. The ``lax.while_loop`` keeps its state on the
+device (cor, cost, lambda, nu, the iteration count, H and g, updated in
+place) and leaves the loop to ``lm_loop``: run eagerly
+(:func:`lm_loop_eager`, the host reads the step's (re-linearise, done)
+flags), or, on the card, captured as an LM-step graph and a
+re-linearisation graph (the JAX ``lax.cond``) that ``odometry/graph.py``
+runs in a device-side WHILE node, the flags read by a kernel.
 
 Linear solver: ``"pcg"`` calls ``ops/pcg.pcg_solve``, which launches kernel
 K1 on CUDA float32 tensors, runs its plain version on CPU tensors and raises
 otherwise; ``"pcg_xla"`` calls the plain version ``pcg_solve_plain`` directly
 (the role of the JAX package's portable ``_pcg_solve``); ``"cholesky"`` uses
-``torch.linalg.cholesky``. Both PCGs fold the damping into the matvec.
+``torch.linalg.cholesky_ex`` (the CPU only: ``LidarOdometry`` refuses it on
+the card, whose sweep graph cannot hold cuSOLVER's triangular solves). Both
+PCGs fold the damping into the matvec.
 
 With ``remap_proj`` (degeneracy solution remapping) the common-mode mean of
 the per-state rotation and position steps is projected off the weak axes
@@ -105,6 +112,18 @@ def _surfel_normal_eqs(j1v, j2v, rs_w, fac, w1, w2, s_cap: int, nb: int):
     return bands, b1.T @ b2, g
 
 
+def lm_loop_eager(lm_step, relinearize, max_iterations: int) -> None:
+    """The LM loop run eagerly: at most ``max_iterations`` calls of
+    ``lm_step``, which returns the device flags (re-linearise, done); the host
+    reads them, one sync each an iteration, and stops on done."""
+    for _ in range(max_iterations):
+        flags = lm_step()
+        if bool(flags[1]):
+            break
+        if bool(flags[0]):
+            relinearize()
+
+
 class SolveStats(NamedTuple):
     iterations: torch.Tensor
     initial_cost: torch.Tensor
@@ -116,10 +135,12 @@ def solve_window(sample: SampleStates, sfac, ifac, weights, dt: float, grav,
                  fix_first_pos, cauchy_scale: float = 0.4, max_iterations: int = 100,
                  init_lambda: float = 1e-4, function_tolerance: float = 1e-6,
                  linear_solver: str = "pcg", pcg_iters: int = 96, pcg_tol: float = 1e-6,
-                 n_binary: int | None = None, remap_proj=None):
+                 n_binary: int | None = None, remap_proj=None, lm_loop=None):
     """Optimize the correction state of the sliding window. ``remap_proj`` is
     None or the (W_t, W_r) projectors of ``factors.degeneracy_projectors``.
-    Returns (sample with updated cor, SolveStats)."""
+    ``lm_loop(lm_step, relinearize, max_iterations)`` runs the LM iterations
+    (default :func:`lm_loop_eager`; ``odometry/graph.py`` passes the one that
+    captures them). Returns (sample with updated cor, SolveStats)."""
     s_cap = sample.capacity
     n_par = s_cap * 12
     dtype = sample.cor.dtype
@@ -175,20 +196,27 @@ def solve_window(sample: SampleStates, sfac, ifac, weights, dt: float, grav,
     def linear_solve(h, g, lam, d):
         dlam = lam * d
         if linear_solver == "cholesky":
-            chol = torch.linalg.cholesky(h + torch.diag(dlam))
+            # cholesky_ex checks nothing on the host (jax.scipy's cho_factor neither)
+            chol = torch.linalg.cholesky_ex(h + torch.diag(dlam), check_errors=False)[0]
             return -torch.cholesky_solve(g[:, None], chol)[:, 0]
         minv = pcg_mod.block_diag_inverse(h, dlam, s_cap)
         solve = pcg_mod.pcg_solve if linear_solver == "pcg" else pcg_mod.pcg_solve_plain
         return solve(h, dlam, minv, -g, pcg_iters, pcg_tol)
 
-    cor = sample.cor.reshape(-1)
+    # the loop state lives in buffers that each iteration updates in place, so
+    # that the iteration can be captured once and replayed (odometry/graph.py)
+    cor = sample.cor.reshape(-1).clone()
     cost0 = eval_cost(cor)
-    cost = cost0
+    cost = cost0.clone()
     h, g = build_normal_eqs(cor)
-    lam = torch.tensor(init_lambda, dtype=dtype, device=dev)
-    nu = torch.tensor(2.0, dtype=dtype, device=dev)
-    k = 0
-    while k < max_iterations:
+    lam = torch.full((), init_lambda, dtype=dtype, device=dev)
+    nu = torch.full((), 2.0, dtype=dtype, device=dev)
+    k = torch.zeros((), dtype=torch.int64, device=dev)
+
+    def lm_step():
+        """One LM iteration (the JAX ``lm_step``), in place. Returns the
+        device flags (re-linearise, done): re-linearisation follows an
+        accepted step that is not final."""
         d = torch.clip(torch.diagonal(h), 1e-6, 1e32)
         delta = remap_step(linear_solve(h, g, lam, d))
         new_flat = cor + delta
@@ -199,19 +227,23 @@ def solve_window(sample: SampleStates, sfac, ifac, weights, dt: float, grav,
         rel_decrease = (cost - new_cost) / torch.clamp(cost, min=tiny)
         new_done = accept & (rel_decrease < function_tolerance)
         shrink = torch.clamp(1.0 - (2.0 * rho - 1.0) ** 3, min=1.0 / 3.0)
-        lam = torch.clip(torch.where(accept, lam * shrink, lam * nu), 1e-12, 1e10)
-        nu = torch.where(accept, torch.full_like(nu, 2.0), nu * 2.0)
-        k += 1
-        # one host sync per LM iteration: accept/done steer the Python loop
-        accepted, done = (bool(v) for v in torch.stack([accept, new_done]).tolist())
-        if accepted:
-            cor, cost = new_flat, new_cost
-            if done:
-                break
-            h, g = build_normal_eqs(cor)
+        lam_out = torch.clip(torch.where(accept, lam * shrink, lam * nu), 1e-12, 1e10)
+        nu_out = torch.where(accept, torch.full_like(nu, 2.0), nu * 2.0)
+        cor.copy_(torch.where(accept, new_flat, cor))
+        cost.copy_(torch.where(accept, new_cost, cost))
+        lam.copy_(lam_out)
+        nu.copy_(nu_out)
+        k.add_(1)
+        return torch.stack([accept & ~new_done, new_done])
+
+    def relinearize():
+        h_new, g_new = build_normal_eqs(cor)
+        h.copy_(h_new)
+        g.copy_(g_new)
+
+    (lm_loop or lm_loop_eager)(lm_step, relinearize, max_iterations)
     out = sample.replace(cor=cor.reshape(s_cap, 12))
-    return out, SolveStats(iterations=torch.tensor(k, device=dev), initial_cost=cost0,
-                           final_cost=cost, lambda_final=lam)
+    return out, SolveStats(iterations=k, initial_cost=cost0, final_cost=cost, lambda_final=lam)
 
 
 def residual_snapshot(sample: SampleStates, sfac, ifac, weights, dt: float, grav):

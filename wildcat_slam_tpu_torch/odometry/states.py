@@ -88,7 +88,7 @@ class SampleStates(TensorStruct):
         new_pos = self.pos_cor + self.pos
         m = self.mask[:, None]
         cor = self.cor.clone()
-        cor[:, 0:6] = 0.0
+        cor[:, 0:6].zero_()
         return self.replace(rot=lie.quat_normalize(torch.where(m, new_rot, self.rot)),
                             pos=torch.where(m, new_pos, self.pos), cor=cor)
 

@@ -152,9 +152,10 @@ def extract_surfels(pts: torch.Tensor, t: torch.Tensor, valid: torch.Tensor,
         ci = cand[level].to(torch.int64)
         dse = ci - torch.cat([zero_i[None], ci[:-1]])
         starts = lv["start_arr"][:-1]
-        keep = starts < p_cap
-        scat = torch.zeros((p_cap,), dtype=torch.int64, device=dev)
-        scat[starts[keep]] = dse[keep]
+        # the absent slots' starts (= p_cap) land in one extra slot that is
+        # cut off: a fixed-shape scatter, no mask-selected index list
+        scat = torch.zeros((p_cap + 1,), dtype=torch.int64, device=dev).index_put_(
+            (starts.long(),), torch.where(starts < p_cap, dse, 0))[:p_cap]
         cand_s = (torch.cumsum(scat, 0) > 0) & (lv["seg_id"] < v_cap) & lv["valid_s"]
 
         gap = torch.cat([torch.ones((1,), dtype=torch.bool, device=dev),

@@ -22,7 +22,7 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("pcg.cu", "knn_bins.cu", "knn_mxu.cu")
+SOURCES = ("pcg.cu", "knn_bins.cu", "knn_mxu.cu", "self_match.cu", "sweep_graph.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -103,12 +103,33 @@ def library() -> ctypes.CDLL:
         lib.wc_knn_mxu.argtypes = [vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, i32, i32, i32,
                                    vp]
         lib.wc_knn_mxu.restype = i32
+        lib.wc_self_match.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32, i32, vp]
+        lib.wc_self_match.restype = i32
+        pp = ctypes.POINTER(vp)
+        lib.wc_graph_create.argtypes = [pp]
+        lib.wc_graph_add_child.argtypes = [vp, pp, vp]
+        lib.wc_graph_add_lm_loop.argtypes = [vp, pp, vp, vp, vp, vp, i32]
+        lib.wc_graph_instantiate.argtypes = [vp, pp]
+        lib.wc_graph_launch.argtypes = [vp, vp]
+        lib.wc_graph_destroy.argtypes = [vp, vp]
+        lib.wc_graph_nodes.argtypes = [vp, ctypes.POINTER(ctypes.c_ulonglong)]
+        for name in ("wc_graph_create", "wc_graph_add_child", "wc_graph_add_lm_loop",
+                     "wc_graph_instantiate", "wc_graph_launch", "wc_graph_destroy",
+                     "wc_graph_nodes"):
+            getattr(lib, name).restype = i32
         lib.wc_knn_mxu_resources.argtypes = [ctypes.POINTER(i32)]
         lib.wc_knn_mxu_resources.restype = i32
         lib.wc_error_string.argtypes = [i32]
         lib.wc_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
+
+
+def graph_nodes(raw_graph: int) -> int:
+    """The node count of a cudaGraph_t (``CUDAGraph.raw_cuda_graph()``)."""
+    n = ctypes.c_ulonglong(0)
+    check(library().wc_graph_nodes(raw_graph, ctypes.byref(n)), "wc_graph_nodes")
+    return n.value
 
 
 def check(err: int, what: str) -> None:

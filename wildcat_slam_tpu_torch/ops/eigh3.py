@@ -54,7 +54,7 @@ def _largest_cross_of_rows(m: torch.Tensor):
 
 def _unit(axis: int, like: torch.Tensor) -> torch.Tensor:
     e = torch.zeros_like(like)
-    e[..., axis] = 1.0
+    e[..., axis].fill_(1.0)
     return e
 
 

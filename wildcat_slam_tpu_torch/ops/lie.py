@@ -149,7 +149,8 @@ def quat_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def quat_conj(q: torch.Tensor) -> torch.Tensor:
-    return q * torch.tensor([1.0, -1.0, -1.0, -1.0], dtype=q.dtype, device=q.device)
+    # the same bits as q * [1, -1, -1, -1], with no constant to copy to the device
+    return torch.cat([q[..., :1], -q[..., 1:]], dim=-1)
 
 
 def cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -81,11 +81,15 @@ def supports(s_cap: int) -> bool:
 
 def pcg_solve_plain(h, dlam, minv, b, iters: int, tol: float) -> torch.Tensor:
     """Plain PyTorch version of the kernel: same recurrence, same early exit
-    (|r|^2 <= tol^2 |b|^2, tested before each iteration), one host sync per
-    iteration for the exit test."""
+    (|r|^2 <= tol^2 |b|^2, tested before each iteration). On CPU tensors the
+    exit is a host read, which costs no sync there. On a card it is taken on
+    the device, so that a sweep graph can hold it (``linear_solver="pcg_xla"``):
+    every iteration runs, and once the test fails none changes anything, so
+    the result is the early-exited one."""
     n = h.shape[0]
     s_cap = n // 12
     tiny = 1e-30
+    on_host = h.device.type == "cpu"
 
     def prec(r):
         return torch.sum(minv * r.reshape(s_cap, 1, 12), dim=2).reshape(n)
@@ -96,17 +100,22 @@ def pcg_solve_plain(h, dlam, minv, b, iters: int, tol: float) -> torch.Tensor:
     p = prec(r)
     rz = torch.sum(r * p)
     for _ in range(iters):
-        if not bool(torch.sum(r * r) > tol * tol * b2):
+        go = torch.sum(r * r) > tol * tol * b2
+        if on_host and not bool(go):
             break
         hp = h @ p + dlam * p
         alpha = rz / torch.clamp(torch.sum(p * hp), min=tiny)
-        x = x + alpha * p
-        r = r - alpha * hp
-        z = prec(r)
-        rz_new = torch.sum(r * z)
+        r_new = r - alpha * hp
+        z = prec(r_new)
+        rz_new = torch.sum(r_new * z)
         beta = rz_new / torch.clamp(rz, min=tiny)
-        p = z + beta * p
-        rz = rz_new
+        if on_host:
+            x, r, p, rz = x + alpha * p, r_new, z + beta * p, rz_new
+        else:
+            x = torch.where(go, x + alpha * p, x)
+            p = torch.where(go, z + beta * p, p)
+            r = torch.where(go, r_new, r)
+            rz = torch.where(go, rz_new, rz)
     return x
 
 

@@ -7,6 +7,8 @@ copied here as a host constant so this package never imports the JAX module.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -21,14 +23,28 @@ _M = np.asarray(
 )
 
 
-def basis(dtype, device=None) -> torch.Tensor:
-    """``_M`` as a tensor of the given dtype/device."""
+@functools.lru_cache(maxsize=None)
+def _basis(dtype, device) -> torch.Tensor:
     return torch.as_tensor(_M, dtype=dtype, device=device)
+
+
+def basis(dtype, device=None) -> torch.Tensor:
+    """``_M`` as a tensor of the given dtype/device, copied to a device once
+    per (dtype, device): a captured sweep may not copy from the host."""
+    return _basis(dtype, torch.device(device) if device is not None else torch.device("cpu"))
+
+
+def _like(x, ref: torch.Tensor) -> torch.Tensor:
+    """``x`` as a tensor of ``ref``'s dtype and device; a Python number is
+    filled on the device rather than copied from the host."""
+    if isinstance(x, (int, float)):
+        return torch.full((), x, dtype=ref.dtype, device=ref.device)
+    return torch.as_tensor(x, dtype=ref.dtype, device=ref.device)
 
 
 def cubic_bspline_approx(p_1, p0, p1, p2, s):
     """Uniform cubic B-spline blend of 4 control points at parameter s in [0, 1]."""
-    s = torch.as_tensor(s, dtype=p0.dtype, device=p0.device)
+    s = _like(s, p0)
     s2 = s * s
     s3 = s2 * s
     w_1 = (1.0 - s) ** 3
@@ -43,7 +59,7 @@ def cubic_hermite(s_1, p_1, s0, p0, s1, p1, s2, p2, s):
     """Catmull-Rom-style cubic Hermite interpolation with 3-point slopes."""
     m0 = 0.5 * ((p0 - p_1) / (s0 - s_1) + (p1 - p0) / (s1 - s0))
     m1 = 0.5 * ((p1 - p0) / (s1 - s0) + (p2 - p1) / (s2 - s1))
-    t = torch.as_tensor((s - s0) / (s1 - s0), dtype=p0.dtype, device=p0.device)
+    t = _like((s - s0) / (s1 - s0), p0)
     t2 = t * t
     t3 = t2 * t
     h00 = 2 * t3 - 3 * t2 + 1
@@ -70,7 +86,7 @@ def bspline_basis_matrix(n: int, dtype=torch.float64, device=None) -> torch.Tens
 def fit_control_points(points: torch.Tensor) -> torch.Tensor:
     """Least-squares control points Q = (N^T N)^-1 N^T p for uniform knots."""
     N = bspline_basis_matrix(points.shape[0], dtype=points.dtype, device=points.device)
-    return torch.linalg.solve(N.T @ N, N.T @ points)
+    return torch.linalg.solve_ex(N.T @ N, N.T @ points, check_errors=False)[0]
 
 
 def eval_bspline(control_points: torch.Tensor, t_front, t_back, query_t):
@@ -79,7 +95,7 @@ def eval_bspline(control_points: torch.Tensor, t_front, t_back, query_t):
     q = control_points
     n = q.shape[0]
     dtype = q.dtype
-    query_t = torch.as_tensor(query_t, dtype=dtype, device=q.device)
+    query_t = _like(query_t, q)
     in_range = (query_t >= t_front) & (query_t <= t_back)
     index_f = (query_t - t_front) / (t_back - t_front) * (n - 1) + 1.0
     index_int = torch.floor(index_f).to(torch.int64)

@@ -1,10 +1,12 @@
 """Multi-window batches: B odometry windows in lockstep.
 
 Counterpart of ``wildcat_slam_tpu/parallel/batch.py``. ``BatchedOdometry``
-owns B single-window host frontends (``LidarOdometry`` with ``dispatch =
-False``: sweep boundaries, feed construction and trajectory bookkeeping,
-shared through ``_prepare_feed``/``_commit``) and one device state per
-window, placed by ``parallel/mesh.py``.
+owns B single-window frontends (``LidarOdometry`` with ``dispatch = False``:
+sweep boundaries, feed construction and trajectory bookkeeping, shared
+through ``_prepare_feed``/``_commit``), each on its device as placed by
+``parallel/mesh.py``, and steps each window through its frontend's
+``_sweep``: on a card, each window's own sweep graph, captured on that
+window's card (``odometry/graph.py``).
 
 Lockstep model (offline batch processing, e.g. parallel bag segments):
 
@@ -17,8 +19,8 @@ Lockstep model (offline batch processing, e.g. parallel bag segments):
   sweep left.
 
 Per-window trajectories and stats come from the embedded frontends
-(:attr:`trajectories`, :attr:`stats`); each window's packed outputs stay on
-its device until they are read. The CLI exposes this as ``--batch
+(:attr:`trajectories`, :attr:`stats`); each window's packed outputs are
+copied to the host as they are made and read when asked for. The CLI exposes this as ``--batch
 SRC1,SRC2,...``.
 """
 
@@ -54,10 +56,18 @@ class BatchedOdometry:
             w = LidarOdometry(cfg, device=dev, use_native=use_native)
             w.dispatch = False  # host buffering only; BatchedOdometry steps
             self.windows.append(w)
-        self.state = mesh_mod.batched_window_state(cfg, batch, self.windows[0].dtype, self.mesh)
-        self._step = mesh_mod.make_batched_step(cfg, self.mesh)
         self._init = mesh_mod.make_batched_init(cfg, self.mesh)
         self._initialized = False
+
+    @property
+    def state(self) -> list:
+        """The windows' states, one a window on its device."""
+        return [w.state for w in self.windows]
+
+    @state.setter
+    def state(self, states: list) -> None:
+        for w, st in zip(self.windows, states, strict=True):
+            w.state = st  # a new state drops the window's graph (LidarOdometry.state)
 
     def add_imu(self, i: int, t: float, acc, gyr) -> None:
         self.windows[i].add_imu(t, acc, gyr)
@@ -82,9 +92,8 @@ class BatchedOdometry:
         preps = [w._prepare_feed() if r else None for w, r in zip(self.windows, ready)]
         feeds = [p["args"] if p is not None else w.noop_feed()
                  for p, w in zip(preps, self.windows)]
-        stacked = [np.stack([f[j] for f in feeds]) for j in range(len(feeds[0]))]
-        self.state, outs = self._step(self.state, *stacked)
-        for w, p, out in zip(self.windows, preps, outs):
+        for w, p, feed in zip(self.windows, preps, feeds):
+            out = w._sweep(feed)  # under the window's card (on a card, its graph)
             if p is not None:
                 w._commit(out, p["back"], p["host_stats"])
 

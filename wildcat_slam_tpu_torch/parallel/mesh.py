@@ -8,19 +8,21 @@ windows in a static loop, not ``vmap``, so that the LM and matcher control
 flow stays adaptive per window. The port keeps those semantics without the
 sharding machinery: the mesh is a list of devices, window ``i`` lives on
 ``mesh[i // (B / n)]`` with its own ``WindowState``, and each window's
-``init_window``/``process_sweep`` runs under ``torch.cuda.device`` of its
-card, so that every launch goes to that card and its stream. One host thread
-steps the devices one after another.
+bootstrap (:func:`make_batched_init`) and sweeps run under
+``torch.cuda.device`` of its card, so that every launch goes to that card
+and its stream. The sweeps run through each window's frontend, on the card
+its own sweep graph (``parallel/batch.py``, ``odometry/graph.py``). One
+host thread steps the devices one after another.
 """
 
 from __future__ import annotations
 
-import contextlib
 from typing import List, Optional
 
 import torch
 
 from wildcat_slam_tpu_torch.config import WildcatConfig
+from wildcat_slam_tpu_torch.odometry import graph as graph_mod
 from wildcat_slam_tpu_torch.odometry import pipeline as pipe
 
 
@@ -56,20 +58,9 @@ def window_devices(batch: int, mesh: List[torch.device]) -> List[torch.device]:
     return [mesh[i // per] for i in range(batch)]
 
 
-def device_guard(dev: torch.device):
-    """``dev`` as the current CUDA device inside the block (nothing for the CPU)."""
-    return torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext()
-
-
 def _put(arrays, dev: torch.device) -> list:
     """Numpy arrays as tensors on ``dev``, one transfer each."""
     return [torch.as_tensor(a).to(dev) for a in arrays]
-
-
-def batched_window_state(cfg: WildcatConfig, batch: int, dtype,
-                         mesh: List[torch.device]) -> List[pipe.WindowState]:
-    """One empty ``WindowState`` per window, on its device."""
-    return [pipe.WindowState.empty(cfg, dtype, dev) for dev in window_devices(batch, mesh)]
 
 
 def _per_device(states: list, feeds, mesh: List[torch.device], inner) -> tuple:
@@ -79,21 +70,11 @@ def _per_device(states: list, feeds, mesh: List[torch.device], inner) -> tuple:
     per = len(states) // len(mesh)
     out = []
     for d, dev in enumerate(mesh):
-        with device_guard(dev):
+        with graph_mod.device_guard(dev):
             local = _put([f[d * per:(d + 1) * per] for f in feeds], dev)
             for j in range(per):
                 out.append(inner(states[d * per + j], *(a[j] for a in local)))
     return out
-
-
-def make_batched_step(cfg: WildcatConfig, mesh: List[torch.device]):
-    """``step(states, *feeds) -> (states, outputs)``: one ``process_sweep`` a
-    window on its device; the feed arrays carry a leading window axis."""
-    def step(states, *feeds):
-        res = _per_device(states, feeds, mesh, lambda st, *a: pipe.process_sweep(st, *a, cfg))
-        return [r[0] for r in res], [r[1] for r in res]
-
-    return step
 
 
 def make_batched_init(cfg: WildcatConfig, mesh: List[torch.device]):

@@ -9,10 +9,15 @@ times, each with a fresh ``LidarOdometry``:
 1. plain -- per-sweep wall ms after the first sweep (median, p90);
 2. stages -- every stage that ``process_sweep`` calls is timed between two
    ``torch.cuda.synchronize()`` calls; ms per sweep by stage, averaged over
-   the sweeps after the first (the syncs add a little to each stage);
+   the sweeps after the first (the syncs add a little to each stage); this
+   run is eager (process_sweep called each sweep), since a graph replays all
+   the stages in one launch;
 3. profiler -- ``torch.profiler`` (CPU + CUDA) over the last ``--profiled``
-   sweeps: CUDA kernel launches, host synchronisations and device kernel time
-   per sweep, and the largest device items.
+   sweeps: the host's launch calls (kernels and CUDA graphs), host
+   synchronisations and device kernel time per sweep, and the largest device
+   items.
+
+Runs 1 and 3 take the frontend's own path: on the card, the sweep graph.
 
 The device idle share is 1 - (device kernel ms per sweep, run 3) / (median
 wall ms per sweep, run 1): device time from the profiler against wall time
@@ -51,14 +56,19 @@ STAGES = [(imu_mod, "propagate"), (win_mod, "add_sample_states"), (imu_mod, "und
           (cor_mod, "update_imu_poses"), (cor_mod, "update_surfel_poses"),
           (win_mod, "extract_moved"), (fmod, "pack_geo_rows"), (win_mod, "rebase_times")]
 
+# the host's launch calls: kernels one by one, and CUDA graphs (a sweep
+# graph's replay launches all its kernels in one call)
 LAUNCH_KEYS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
-               "cudaLaunchCooperativeKernel")
+               "cudaLaunchCooperativeKernel", "cudaGraphLaunch")
 SYNC_KEYS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize")
 
 
-def _run(seq, device, on_sweep=None) -> pipeline.LidarOdometry:
-    """Feed the whole sequence; ``on_sweep(lo)`` runs before each scan."""
+def _run(seq, device, on_sweep=None, graph: bool = True) -> pipeline.LidarOdometry:
+    """Feed the whole sequence; ``on_sweep(lo)`` runs before each scan.
+    ``graph=False`` runs every sweep eagerly (the stage timings need the
+    stages called one by one; a graph replays them all at once)."""
     lo = pipeline.LidarOdometry(WildcatConfig(), device=device)
+    lo._use_graph = graph
     for ev in synthetic_events(seq):
         if ev[0] == "scan" and on_sweep is not None:
             on_sweep(lo)
@@ -94,7 +104,7 @@ def stage_times(seq, device) -> tuple[dict, int]:
     try:
         def start_counting(lo):
             counting[0] = lo.sweep_id >= 1
-        lo = _run(seq, device, start_counting)
+        lo = _run(seq, device, start_counting, graph=False)
     finally:
         for ns, attr, fn in saved:
             setattr(ns, attr, fn)
@@ -156,8 +166,8 @@ def main(argv=None) -> int:
     dev_us = sum(r.self_device_time_total for r in rows if r.device_type == DeviceType.CUDA
                  and not getattr(r, "is_user_annotation", False))
     dev_ms = dev_us / 1e3 / n_prof
-    print(f"profiler: {n_prof} sweeps; per sweep: {count(LAUNCH_KEYS) / n_prof:.1f} kernel "
-          f"launches, {count(SYNC_KEYS) / n_prof:.1f} host syncs, "
+    print(f"profiler: {n_prof} sweeps; per sweep: {count(LAUNCH_KEYS) / n_prof:.1f} launch "
+          f"calls (kernels and graphs), {count(SYNC_KEYS) / n_prof:.1f} host syncs, "
           f"{count(('cudaMemcpyAsync',)) / n_prof:.1f} cudaMemcpyAsync, device kernel time "
           f"{dev_ms:.3f} ms -> idle share {1.0 - dev_ms / med:.3f} of the {med:.2f} ms "
           "median sweep")
