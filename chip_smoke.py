@@ -24,22 +24,29 @@ non-zero):
                 n_bins 128, 256 and 384 (the bin counts knn_topk gives small T);
                 K3 (self_match) at Q=8192, k=10 on random candidates and on
                 adversarial chains (31 and 2001 rounds, and 2001 capped at 5),
-                and at a ragged Q, bit-equal to its plain version;
+                at a ragged Q, one query and Q=35000 (its lists in a global
+                scratch), bit-equal to its plain version; K4 (spd_solve) in
+                float32 and float64 at N=96, m=6 and N=1152, m=1 (the main
+                path's shapes) and N=1, 12, 130, 576, 3072, held to its
+                backward-error and forward-gap bounds, NaN on indefinite
+                systems, and a graph replay equal to its eager call;
   4. main    -- LidarOdometry(WildcatConfig(), device="cuda") on an 8 s
                 synthetic sequence at 64k points per sweep: its first sweep
                 eager, the rest on its sweep graph (odometry/graph.py); ATE <
-                0.02 m, K1, K2 vpu and K3 launched by that run (replays count
-                the launches they hold), what the graph cost to capture;
+                0.02 m, K1, K2 vpu, K3 and K4 launched by that run (replays
+                count the launches they hold), what the graph cost to capture;
                 then (k) the eager reference, process_sweep called directly
                 on each feed _prepare_feed builds: the graph run must equal it
                 bit for bit (trajectory, the 22 packed outputs); it records
-                the inputs of the first K1 call and of each K2 and K3 call of
-                its last sweep;
+                the inputs of the first K1 call and of each K2, K3 and K4 call
+                of its last sweep;
   5. replay  -- the mxu path, knn_topk(mode="mxu") on the recorded K2 inputs,
                 then each kernel against its plain version on the recorded
                 main-path inputs, with CUDA-event timings of both and of one
                 PyTorch call as yardstick (library_ms; none computes K3's
-                fixed point, so K3's is null), and each kernel's bound;
+                fixed point, so K3's is null), and each kernel's bound; K4
+                on the spline fit's system and on the first damped LM system
+                (from K1's inputs) in float32 and float64;
                 then K1's S-scaling table: K1 on the random S=96/192/256
                 systems, its time, iterations run, bound and share of it;
                 then each wrapper's cost (wrapper_costs): device time, time
@@ -103,9 +110,10 @@ non-zero):
                 the other steady sweeps, the idle share; and the graph's
                 capture and instantiate seconds, node count and pool size;
                 then float64 with linear_solver="pcg_xla" (the plain PCG,
-                its early exit on the device) and float32 with
-                linear_solver="cholesky" (cuSOLVER), each on the room's
-                first 8 sweeps, graph against eager, bit-equal.
+                its early exit on the device) and linear_solver="cholesky"
+                (K4) in float32 and in float64, each on the room's first 8
+                sweeps, graph against eager, bit-equal, K4's launches
+                counted.
 host_costs, not run by main, times the host feeder (numpy against native)
 and the live viewer on the main sequence (see its docstring).
 The script imports nothing of JAX or of the JAX package. Its last three lines
@@ -114,8 +122,14 @@ and {"ok": true, "device": {...}}.
 
 Tolerances. K2 rounds exactly like its plain version (no FMA, the same
 dimension order), so values and indices must be bit-equal. K3 computes
-integers: its partners and rounds must equal its plain version's. The sweep
-graph runs the eager path's kernels in the eager path's order, so every
+integers: its partners and rounds must equal its plain version's. K4 factors
+in another order than cuSOLVER: its backward error |a x - b| / (|a| |x| +
+|b|) must be at most 10 N eps of its dtype (a Cholesky solve's is a small
+multiple of eps), and its forward gap max|x - x_plain| / max|x_plain| at
+most 100 kappa_2(a) eps (sound solves read a few kappa eps; one tile's
+update left out reads ~100 times the bound at N=1152 while its backward
+error stays inside 10 N eps), its solution finite, two runs bit-equal. The
+sweep graph runs the eager path's kernels in the eager path's order, so every
 graph run must equal its eager run bit for bit. K1 sums its
 matvec in another order than the plain version's cuBLAS gemv and CG
 amplifies that: the solutions must agree within K1_RTOL of their largest
@@ -141,13 +155,17 @@ Timings: ms, plain_ms and library_ms are the median of 20 single calls,
 each between CUDA events and synchronised, so they include the host's launch
 overhead; device_ms is CUDA events around 20 back-to-back calls divided by
 20, the median of 5 such runs, where that overhead hides behind the device's
-work unless it is the larger.
+work unless it is the larger; graph_ms (K3, K4, whose wrappers cost the host
+more than their launches cost the device at the main path's shapes) is 20
+calls captured in one CUDA graph and replayed, divided by 20.
 
 Bounds (bound_ms): the larger of the bytes each kernel must move (inputs read
 once, outputs written once) over 3.35 TB/s and its operations over the peak
 rate of their kind (67 TFLOP/s f32 with an FMA as two operations, so 33.5 T
 op/s for plain f32 operations; 495 TFLOP/s TF32 on the tensor cores), counted
-from this run's inputs (K1: the iterations its data needs).
+from this run's inputs (K1: the iterations its data needs; K4: N^3 / 6 + N^2 m
+FMA at the card's peak for its dtype, 67 TFLOP/s f32, and 67 TFLOP/s f64 on
+the tensor cores (DMMA), twice the rate of the DFMA that it issues).
 """
 
 from __future__ import annotations
@@ -180,6 +198,7 @@ GRAPH_PROFILED = (60, 68)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12        # FMA counted as two operations
 F32_OPS = F32_FLOPS / 2  # one plain f32 (or compare/select) operation per lane per clock
+F64_FLOPS = 67e12        # FMA counted as two operations, on the tensor cores (DMMA)
 TF32_FLOPS = 495e12
 
 
@@ -396,7 +415,7 @@ def _cloud(rng, n: int, spread: float = 5.0):
 def _counted(label: str, fn):
     """Run one path with every launch count set to 0 before it; returns fn's
     result and the counts read after it. The kernels of the main path (K1,
-    K2 vpu, K3) must launch. A sweep graph's replays count the launches it
+    K2 vpu, K3, K4) must launch. A sweep graph's replays count the launches it
     holds, once a replay, and its capture counts none (``graph.launches``)."""
     import torch
 
@@ -406,7 +425,7 @@ def _counted(label: str, fn):
     out = fn()
     torch.cuda.synchronize()
     counts = graph.launches()
-    launches = {k: counts[k] for k in ("pcg", "knn", "self_match")}
+    launches = {k: counts[k] for k in ("pcg", "knn", "self_match", "spd")}
     if not all(launches.values()):
         raise AssertionError(f"{label}: a kernel of the path did not launch: {launches}")
     return out, launches
@@ -728,6 +747,113 @@ def _k3_bound(q: int, k: int, rounds: int) -> tuple:
     return _bound(8.0 * q * k + q * k + 8.0 * q, int32=2.0 * rounds * q * k / F32_OPS)
 
 
+def spd_system(dev, n: int, m: int, dtype, seed: int = 0):
+    """K4's inputs: a = G G^T / N + I (eigenvalues in [1, ~5]) and b, made
+    from ``seed`` with numpy, in ``dtype`` on the card."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed + n + m)
+    g = rng.normal(size=(n, n))
+    a = g @ g.T / n + np.eye(n)
+    return (torch.as_tensor(a, dtype=dtype, device=dev),
+            torch.as_tensor(rng.normal(size=(n, m)), dtype=dtype, device=dev))
+
+
+def check_k4(label: str, a, b) -> float:
+    """K4 against its plain version (``spd.accuracy``): a finite x whose
+    backward error |a x - b| / (|a| |x| + |b|) is at most 10 N eps and whose
+    forward gap max|x - x_plain| / max|x_plain| is at most 100 kappa_2(a) eps
+    (a the symmetric matrix that a's lower triangle stands for), two runs
+    bit-equal. Returns max |x - x_plain|."""
+    import torch
+
+    from wildcat_slam_tpu_torch.ops import spd
+
+    x = spd.spd_solve(a, b)
+    x2 = spd.spd_solve(a, b)
+    ref = spd.spd_solve_plain(a, b)
+    torch.cuda.synchronize()
+    acc = spd.accuracy(a, b, x, ref)
+    plain = spd.accuracy(a, b, ref, ref)
+    same = torch.equal(x, x2)
+    line = (f"K4 spd_solve {label}: N={a.shape[0]} m={b.shape[1]} {str(a.dtype)[6:]}; backward "
+            f"error {acc['backward']:.3e} (plain {plain['backward']:.3e}; bound 10 N eps = "
+            f"{acc['backward_bound']:.3e}); max|x-x_plain| / max|x_plain| {acc['forward']:.3e} "
+            f"(bound 100 kappa eps = {acc['forward_bound']:.3e}, kappa {acc['kappa']:.3e}); "
+            f"bitwise-repeatable={same}")
+    print(line, flush=True)
+    if not (acc["ok"] and same):
+        raise AssertionError("K4 left its bound: " + line)
+    return float(torch.max(torch.abs(x - ref)))
+
+
+def check_k4_edges(dev, dtype) -> None:
+    """K4 on an indefinite system gives NaN everywhere, as its plain version
+    (the 3 x 3 whose second pivot is negative, and the N=1152 system with one
+    diagonal entry made negative); inside a CUDA graph capture it gives its
+    eager bits."""
+    import torch
+
+    from wildcat_slam_tpu_torch.ops import spd
+
+    small = torch.tensor([[3.5, 2.0, 0.0], [2.0, 0.5, 0.0], [0.0, 0.0, 2.5]], dtype=dtype,
+                         device=dev)
+    a, b = spd_system(dev, 1152, 1, dtype)
+    spoiled = a.clone()
+    spoiled[700, 700] = -5.0
+    nans = []
+    for aa, bb in ((small, torch.ones((3, 1), dtype=dtype, device=dev)), (spoiled, b)):
+        nans.append(bool(torch.all(torch.isnan(spd.spd_solve(aa, bb))))
+                    and bool(torch.all(torch.isnan(spd.spd_solve_plain(aa, bb)))))
+    eager = spd.spd_solve(a, b)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        spd.spd_solve(a, b)
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        captured = spd.spd_solve(a, b)
+    g.replay()
+    torch.cuda.synchronize()
+    same = torch.equal(captured, eager)
+    print(f"K4 spd_solve {str(dtype)[6:]}: NaN everywhere on the indefinite 3 x 3 and N=1152 "
+          f"systems (kernel and plain): {nans}; a graph replay equals the eager call bit for "
+          f"bit: {same}", flush=True)
+    if not (all(nans) and same):
+        raise AssertionError(f"K4 edges failed: NaN {nans}, graph equal {same}")
+
+
+def _k4_bound(n: int, m: int, itemsize: int) -> tuple:
+    """K4's bound: a's lower triangle and b read once, x written once; the
+    factorisation's N^3 / 6 FMA and the two triangular solves' N^2 m FMA at
+    the card's peak for the dtype: the f32 FMA rate, and in f64 the tensor
+    cores' (DMMA, twice the DFMA rate that the kernel issues at)."""
+    flops = n ** 3 / 3.0 + 2.0 * n * n * m
+    ops = {"fma": flops / F32_FLOPS} if itemsize == 4 else {"dmma": flops / F64_FLOPS}
+    return _bound(itemsize * (n * (n + 1) / 2 + 2 * n * m), **ops)
+
+
+def k4_times(a, b, err: float) -> dict:
+    """K4's row: its times (single calls, back to back, graph replays), the
+    plain version's, the library's (cholesky + cholesky_solve) and its bound."""
+    import torch
+
+    from wildcat_slam_tpu_torch.ops import spd
+    from wildcat_slam_tpu_torch.profile_sweeps import graph_ms
+
+    def library():
+        return torch.cholesky_solve(b, torch.linalg.cholesky(a))
+
+    bound_ms, bound_by = _k4_bound(a.shape[0], b.shape[1], a.element_size())
+    return dict(max_abs_err=err, ms=_time_ms(lambda: spd.spd_solve(a, b)),
+                device_ms=_device_ms(lambda: spd.spd_solve(a, b)),
+                graph_ms=graph_ms(lambda: spd.spd_solve(a, b)),
+                plain_ms=_time_ms(lambda: spd.spd_solve_plain(a, b)),
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=_time_ms(library))
+
+
 def phase_kernels(dev) -> None:
     import numpy as np
     import torch
@@ -789,6 +915,20 @@ def phase_kernels(dev) -> None:
     check_k3("chain of 2000, capped", *k3_chains(8192, 10, 2, [2000], dev), 5)
     check_k3("ragged", torch.randint(0, 1001, (1001, 7), device=dev, generator=gen),
              torch.rand((1001, 7), device=dev, generator=gen) < 0.6, 1001)
+    # K3 at the edges of its plan: one query; Q=35000, whose lists outgrow
+    # shared memory (a global scratch)
+    check_k3("one query", torch.zeros((1, 10), dtype=torch.int64, device=dev),
+             torch.ones((1, 10), dtype=torch.bool, device=dev), 1)
+    check_k3("Q=35000, lists in global memory", *k3_chains(35000, 10, 4, [50] * 10, dev), 35000)
+    # K4 at the main path's shapes (the spline fit's N=96, m=6; the damped LM
+    # system's N=1152, m=1) and at the edges of its plan (one tile; a ragged
+    # last tile on 2 blocks; N=3072 on the whole card), in both dtypes; an
+    # indefinite system; a graph capture
+    for dtype in (torch.float32, torch.float64):
+        for n, m in ((96, 6), (1152, 1), (1, 1), (12, 6), (130, 6), (576, 1), (3072, 1),
+                     (3072, 6)):
+            check_k4("random", *spd_system(dev, n, m, dtype))
+        check_k4_edges(dev, dtype)
 
 
 def phase_main(dev) -> tuple:
@@ -828,11 +968,11 @@ def phase_eager(dev, main_lo, events) -> tuple:
     """(k), the main sequence: the eager reference (process_sweep called on
     each feed, no graph) must equal the graph run bit for bit, in the
     trajectory and every packed output (iteration counts included). It
-    records the inputs of the first K1 call and of each K2 and K3 call of its
-    last sweep. Returns them and the eager frontend."""
+    records the inputs of the first K1 call and of each K2, K3 and K4 call
+    of its last sweep. Returns them and the eager frontend."""
     import numpy as np
 
-    from wildcat_slam_tpu_torch.ops import knn, pcg
+    from wildcat_slam_tpu_torch.ops import knn, pcg, spd
     from wildcat_slam_tpu_torch.ops import self_match as sm
 
     lo = _eager_frontend(dev)
@@ -855,11 +995,19 @@ def phase_eager(dev, main_lo, events) -> tuple:
         recorded["self_match"] = (cand.clone(), ok.clone(), max_rounds)
         return real_sm(cand, ok, max_rounds)
 
+    real_spd = spd.spd_solve
+
+    def spd_recorder(a, b):  # the spline fit's system (the main path runs pcg)
+        recorded["spd"] = (a.clone(), b.clone())
+        return real_spd(a, b)
+
     pcg.pcg_solve, knn.knn_bins, sm.self_match = pcg_recorder, bins_recorder, sm_recorder
+    spd.spd_solve = spd_recorder
     try:
         _eager_feed(lo, events)
     finally:
         pcg.pcg_solve, knn.knn_bins, sm.self_match = real_pcg, real_bins, real_sm
+        spd.spd_solve = real_spd
     same = _same_outputs(main_lo, lo)
     med = np.median(np.asarray(lo.sweep_seconds[1:]) * 1e3)
     print(f"(k) main sequence: eager process_sweep {lo.sweep_id} sweeps, per-sweep median "
@@ -886,6 +1034,7 @@ def phase_replay(recorded: dict) -> dict:
 
     from wildcat_slam_tpu_torch.ops import knn, pcg
     from wildcat_slam_tpu_torch.ops import self_match as sm
+    from wildcat_slam_tpu_torch.profile_sweeps import graph_ms
 
     t_sizes = sorted(k[1] for k in recorded if isinstance(k, tuple))
     # the mxu path: knn_topk(mode="mxu"), the entry point that reaches it, on
@@ -953,13 +1102,63 @@ def phase_replay(recorded: dict) -> dict:
     out["self_match"] = dict(
         max_abs_err=0.0, ms=_time_ms(lambda: sm.self_match(cand, ok, max_rounds)),
         device_ms=_device_ms(lambda: sm.self_match(cand, ok, max_rounds)),
+        graph_ms=graph_ms(lambda: sm.self_match(cand, ok, max_rounds)),
         plain_ms=_time_ms(lambda: sm.self_match_plain(cand, ok, max_rounds)),
         bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
     r = out["self_match"]
     print(f"K3 self_match main-path time: kernel {r['ms']:.4f} ms by single synchronised calls, "
-          f"{r['device_ms']:.4f} ms back to back; plain {r['plain_ms']:.4f} ms; no PyTorch call "
-          f"computes the fixed point; bound {bound_ms * 1e3:.3f} us ({bound_by}, {rounds} "
-          f"rounds), {bound_ms / r['device_ms']:.2%} of the device time", flush=True)
+          f"{r['device_ms']:.4f} ms back to back, {r['graph_ms']:.4f} ms by graph replays; plain "
+          f"{r['plain_ms']:.4f} ms; no PyTorch call computes the fixed point; bound "
+          f"{bound_ms * 1e3:.3f} us ({bound_by}, {rounds} rounds), "
+          f"{bound_ms / r['graph_ms']:.2%} of the graph-replay time", flush=True)
+    # K3's cost split, by graph replays at Q=8192, k=10: a launch of a few
+    # rounds (random candidates) against one of 2001 (the adversarial chain)
+    # gives a round's cost and the rest's (the one-time load, the output)
+    split = []
+    for cand_s, ok_s in (k3_chains(8192, 10, 1, [], cand.device),
+                         k3_chains(8192, 10, 2, [2000, 500, 7], cand.device)):
+        split.append((int(sm.self_match(cand_s, ok_s, 8192)[1]),
+                      graph_ms(lambda c=cand_s, o=ok_s: sm.self_match(c, o, 8192))))
+    (r_few, ms_few), (r_many, ms_many) = split
+    per_round = (ms_many - ms_few) / (r_many - r_few)
+    print(f"K3 cost split (graph replays): {r_few} rounds {ms_few:.4f} ms, {r_many} rounds "
+          f"{ms_many:.4f} ms: {per_round * 1e3:.3f} us a round, "
+          f"{(ms_few - r_few * per_round) * 1e3:.2f} us the rest (the one-time load of cand "
+          f"and ok, the output)", flush=True)
+    # the same main-path launch with its lists in the global scratch that a
+    # Q whose lists outgrow shared memory takes (the plan given no room beyond
+    # the partners): what keeping them in shared memory buys at this shape
+    plan = sm.plan
+    sm.plan = lambda q, k: plan(q, k, smem_per_block=4 * q)
+    try:
+        partner_g, rounds_g = sm.self_match(cand, ok, max_rounds)
+        ref, ref_rounds = sm.self_match_plain(cand, ok, max_rounds)
+        same_g = torch.equal(partner_g, ref) and int(rounds_g) == int(ref_rounds)
+        global_ms = graph_ms(lambda: sm.self_match(cand, ok, max_rounds))
+    finally:
+        sm.plan = plan
+    print(f"K3 lists in shared memory against a global scratch, main path Q={cand.shape[0]} "
+          f"k={cand.shape[1]} (graph replays): {r['graph_ms']:.4f} ms against {global_ms:.4f} "
+          f"ms; global-scratch partners and rounds equal the plain version's: {same_g}",
+          flush=True)
+    if not same_g:
+        raise AssertionError("K3 with its lists in a global scratch left its plain version")
+
+    # K4 on the main path's last spline fit (its shape on the main path), then
+    # on the main path's first damped LM system (h + diag(dlam) of K1's
+    # recorded inputs, as linear_solver="cholesky" would solve it), f32 and f64
+    a_fit, b_fit = recorded["spd"]
+    out["spd"] = k4_times(a_fit, b_fit, check_k4("main-path spline fit", a_fit, b_fit))
+    _print_times(f"K4 spd_solve main-path spline fit N={a_fit.shape[0]} m={b_fit.shape[1]}",
+                 out["spd"], "cholesky + cholesky_solve", f"; graph replays "
+                 f"{out['spd']['graph_ms']:.4f} ms")
+    h_lm, dlam_lm, _, b_lm, _, _ = recorded["pcg"]
+    for dtype in (torch.float32, torch.float64):
+        a_lm, rhs = (h_lm + torch.diag(dlam_lm)).to(dtype), b_lm[:, None].to(dtype)
+        r = k4_times(a_lm, rhs, check_k4("main-path LM system", a_lm, rhs))
+        _print_times(f"K4 spd_solve main-path LM system N={a_lm.shape[0]} m=1 "
+                     f"{str(dtype)[6:]}", r, "cholesky + cholesky_solve",
+                     f"; graph replays {r['graph_ms']:.4f} ms")
 
     # K1's S-scaling table on the random systems of phase 3 (iters 24, tol 1e-2)
     sms = torch.cuda.get_device_properties(h.device).multi_processor_count
@@ -1354,10 +1553,12 @@ def phase_graph(dev) -> None:
     times): launch calls, syncs and memcpys, device kernel ms (torch.profiler);
     wall median and p90 over the other steady sweeps; idle share."""
     import numpy as np
+    import torch
 
     from wildcat_slam_tpu_torch import cli
     from wildcat_slam_tpu_torch.config import WildcatConfig
     from wildcat_slam_tpu_torch.io.synthetic import SyntheticSequence, ate_rmse
+    from wildcat_slam_tpu_torch.odometry import graph
     from wildcat_slam_tpu_torch.odometry.pipeline import LidarOdometry
 
     cfg = WildcatConfig()
@@ -1406,22 +1607,30 @@ def phase_graph(dev) -> None:
     if not (same and ate < 0.02 and runs["graph"].sweep_id >= 90):
         raise AssertionError(f"(k) 50 s room failed: bit-equal {same}, ATE {ate}")
     # float64 on the card takes the plain PCG (linear_solver="pcg_xla"), whose
-    # early exit the graph holds on the device, and float32 takes
-    # linear_solver="cholesky" (cuSOLVER) on the graph too: the room's first
-    # 8 sweeps of each, graph against eager
+    # early exit the graph holds on the device, and linear_solver="cholesky"
+    # takes K4 in float32 and float64 on the graph too: the room's first 8
+    # sweeps of each, graph against eager, K4's launches counted on the graph
     for label, kw in (("float64, linear_solver='pcg_xla'",
                        dict(dtype="float64", linear_solver="pcg_xla")),
-                      ("float32, linear_solver='cholesky'", dict(linear_solver="cholesky"))):
+                      ("float32, linear_solver='cholesky'", dict(linear_solver="cholesky")),
+                      ("float64, linear_solver='cholesky'",
+                       dict(dtype="float64", linear_solver="cholesky"))):
         cfg_x = WildcatConfig(**kw)
         lo = LidarOdometry(cfg_x, device=dev)
+        graph.reset_counts()
         cli.feed_events(lo, events, until_sweep=8)
+        torch.cuda.synchronize()
+        counts = graph.launches()
         ref = _eager_frontend(dev, cfg_x)
         _eager_feed(ref, events, until_sweep=8)
         same = _same_outputs(lo, ref)
+        its = sum(st["iterations"] for st in lo.stats)
         print(f"(k) {label}: {lo.sweep_id} sweeps, graph run equal to the eager run bit for "
-              f"bit: {same}; sweep graph: {_graph_text(lo)}", flush=True)
-        if not (same and lo.sweep_id == 8):
-            raise AssertionError(f"(k) the {label} graph run left its eager run")
+              f"bit: {same}; {its:.0f} LM iterations, launches {counts}; sweep graph: "
+              f"{_graph_text(lo)}", flush=True)
+        k4_ok = counts["spd"] >= max(1, its if kw["linear_solver"] == "cholesky" else 0)
+        if not (same and lo.sweep_id == 8 and k4_ok):
+            raise AssertionError(f"(k) the {label} graph run left its eager run or missed K4")
 
 
 def phase_outputs(dev) -> None:
@@ -1848,6 +2057,11 @@ def main() -> int:
         dict(name="self_match", route="cuda", source="wildcat_slam_tpu_torch/csrc/self_match.cu",
              replaces="wildcat_slam_tpu/odometry/match.py:233", launches=launches["self_match"],
              **kern["self_match"]),
+        # no pallas_call: the counterpart of the spline fit's jnp.linalg.solve
+        # (the main path's call; also cho_factor/cho_solve at solver.py:421)
+        dict(name="spd_solve", route="cuda", source="wildcat_slam_tpu_torch/csrc/spd_solve.cu",
+             replaces="wildcat_slam_tpu/odometry/corrections.py:57", launches=launches["spd"],
+             **kern["spd"]),
     ]
     for r in rows:
         nums = ("launches", "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms")

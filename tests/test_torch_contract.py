@@ -33,7 +33,8 @@ PORT_MODULES = [
     "wildcat_slam_tpu_torch.parallel.mesh", "wildcat_slam_tpu_torch.parallel.batch",
     "wildcat_slam_tpu_torch.viz.surfel_export", "wildcat_slam_tpu_torch.viz.live",
     "wildcat_slam_tpu_torch.io.native", "wildcat_slam_tpu_torch.odometry.graph",
-    "wildcat_slam_tpu_torch.ops.self_match",
+    "wildcat_slam_tpu_torch.ops.self_match", "wildcat_slam_tpu_torch.ops.spd",
+    "wildcat_slam_tpu_torch.probe_spd",
 ]
 # JAX modules the port does not carry (ROADMAP.md, "Not to port"), and the
 # port's names of the kernels' modules

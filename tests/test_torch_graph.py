@@ -46,7 +46,7 @@ from wildcat_slam_tpu_torch.odometry import graph as graph_mod
 from wildcat_slam_tpu_torch.odometry import match as t_match_mod
 from wildcat_slam_tpu_torch.odometry import pipeline
 from wildcat_slam_tpu_torch.odometry.pipeline import WindowState
-from wildcat_slam_tpu_torch.ops import knn, pcg
+from wildcat_slam_tpu_torch.ops import knn, pcg, spd
 from wildcat_slam_tpu_torch.ops import self_match as sm
 
 torch.set_num_threads(1)
@@ -61,7 +61,9 @@ PARITY = dict(TINY, dtype="float64", match_knn_approx=False)
 PLAIN_DECISIONS = {"lm_loop_eager", "self_match_plain", "pcg_solve_plain"}
 # factorisations and triangular solves: on the card their cuBLAS/cuSOLVER
 # calls may allocate stream-ordered memory inside a capture, which the
-# composed sweep graph's child nodes cannot hold (odometry/graph.py)
+# composed sweep graph's child nodes cannot hold (odometry/graph.py); only a
+# plain version that a card never runs may make them (K4 runs there instead)
+PLAIN_SOLVES = {"spd_solve_plain"}
 LIBRARY_SOLVES = {"linalg_solve", "_linalg_solve_ex", "linalg_solve_ex", "linalg_lu_factor_ex",
                   "linalg_lu_solve", "lu_solve", "triangular_solve", "linalg_solve_triangular",
                   "linalg_cholesky_ex", "cholesky_solve", "linalg_inv_ex", "_linalg_check_errors"}
@@ -135,7 +137,7 @@ def test_sweep_body_reads_nothing_on_the_host():
     for m in modes[1:]:  # after the warm-up sweep (which fills the device constants)
         assert not m.lifted, dict(m.lifted)
         assert not m.shaped, dict(m.shaped)
-        assert not m.solves, dict(m.solves)
+        assert set(m.solves) <= PLAIN_SOLVES and m.solves["spd_solve_plain"] > 0, dict(m.solves)
         assert set(m.reads) <= PLAIN_DECISIONS, dict(m.reads)
         # each plain loop decided at least once: the LM loop, the self-match, the PCG
         assert set(m.reads) == PLAIN_DECISIONS, dict(m.reads)
@@ -291,35 +293,46 @@ def test_write_back_handles_aliased_fields():
 
 def test_launches_count_replays_not_captures():
     graph_mod.reset_counts()
-    pcg.LAUNCHES, knn.LAUNCHES, sm.LAUNCHES = 3, 4, 2  # 1, 2 and 1 eager; the rest captured
-    graph_mod.CAPTURED.update(pcg=2, knn=2, self_match=1)
-    # what the replays' adds leave in a device's counter (pcg, knn, knn_mxu, self_match)
-    graph_mod.replay_counter(torch.device("cpu")).add_(torch.tensor([10, 8, 0, 4]))
-    assert graph_mod.launches() == dict(pcg=11, knn=10, knn_mxu=0, self_match=5)
+    # 1, 2, 1 and 0 eager; the rest captured
+    pcg.LAUNCHES, knn.LAUNCHES, sm.LAUNCHES, spd.LAUNCHES = 3, 4, 2, 1
+    graph_mod.CAPTURED.update(pcg=2, knn=2, self_match=1, spd=1)
+    # what the replays' adds leave in a device's counter (pcg, knn, knn_mxu, self_match, spd)
+    graph_mod.replay_counter(torch.device("cpu")).add_(torch.tensor([10, 8, 0, 4, 6]))
+    assert graph_mod.launches() == dict(pcg=11, knn=10, knn_mxu=0, self_match=5, spd=6)
     graph_mod.reset_counts()
-    assert graph_mod.launches() == dict(pcg=0, knn=0, knn_mxu=0, self_match=0)
+    assert graph_mod.launches() == dict(pcg=0, knn=0, knn_mxu=0, self_match=0, spd=0)
 
 
 def test_self_match_plan_states_its_limit():
-    p = sm.plan(8192, 10)
-    assert p.threads == sm.THREADS and p.smem_bytes == 4 * (8192 + 2 * 2560)
+    p = sm.plan(8192, 10)  # two 16-bit partner buffers, then 11 list rows of 8194 16-bit slots
+    assert sm.list_stride(8192) == 8194 and sm.list_stride(1001) == 1026
+    assert p.threads == sm.THREADS and p.smem_bytes == 4 * 8192 + 2 * 8194 * 11
+    assert p.shared_lists
     assert sm.supports(8192, 10) and sm.supports(35000, 10)
-    assert not sm.supports(36000, 10)
+    assert sm.plan(35000, 10) == (sm.THREADS, 4 * 35000, False)  # the lists in a global scratch
+    assert sm.supports(58112, 1) and not sm.supports(58113, 1)
     with pytest.raises(ValueError, match="shared memory"):
-        sm.plan(36000, 10)
+        sm.plan(58113, 10)
     with pytest.raises(ValueError):
         sm.self_match(torch.zeros((4, 3), dtype=torch.int32), torch.zeros((4, 3), dtype=torch.bool), 4)
 
 
 def test_cholesky_refused_for_the_card(monkeypatch):
-    """linear_solver='cholesky' in float64 is refused for a card before
-    anything is placed there (the card stood in for by is_available); in
-    float32 the card takes it, and the CPU runs both."""
+    """linear_solver='cholesky' runs on kernel K4 in float32 and float64, so
+    the card takes both; float64 with linear_solver='pcg' (K1 is float32
+    only) and a system K4's plan cannot hold are refused before anything is
+    placed there (the card stood in for by is_available). The CPU runs
+    both."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    with pytest.raises(ValueError, match="cholesky"):
-        pipeline.LidarOdometry(WildcatConfig(**TINY, linear_solver="cholesky", dtype="float64"),
-                               device="cuda")
-    pipeline.check_card_config(WildcatConfig(**TINY, linear_solver="cholesky"))
+    for dtype in ("float32", "float64"):
+        pipeline.check_card_config(WildcatConfig(**TINY, linear_solver="cholesky", dtype=dtype))
+    with pytest.raises(ValueError, match="K1"):
+        pipeline.LidarOdometry(WildcatConfig(**TINY, dtype="float64"), device="cuda")
+    big = 2500  # N = 30000: x (8 N bytes) outgrows one block's shared memory
+    assert not spd.supports(12 * big, 1, torch.float64) and spd.supports(big, 6, torch.float64)
+    with pytest.raises(ValueError, match="K4"):
+        pipeline.check_card_config(WildcatConfig(**dict(TINY, max_sample_states=big),
+                                                 linear_solver="cholesky", dtype="float64"))
     for dtype in ("float32", "float64"):
         pipeline.LidarOdometry(WildcatConfig(**TINY, linear_solver="cholesky", dtype=dtype),
                                device="cpu")
@@ -329,9 +342,10 @@ def test_cholesky_refused_for_the_card(monkeypatch):
     ("float64", 1, 1e-12), ("float64", 2, 1e-12), ("float64", 9, 1e-12), ("float64", 16, 1e-12),
     ("float32", 9, 1e-5), ("float32", 16, 1e-5)])
 def test_spline_fit_matches_jax(dtype, count, tol):
-    """The correction spline's control points: (N^T N) Q = N^T p solved in
-    plain ops (``corrections._solve_spd``) against the JAX fit's library
-    solve, at live counts from one state to the full capacity."""
+    """The correction spline's control points: (N^T N) Q = N^T p solved by
+    ``ops/spd.spd_solve`` (K4's plain version on the CPU) against the JAX
+    fit's library solve, at live counts from one state to the full
+    capacity."""
     from wildcat_slam_tpu.odometry import corrections as j_cor
     from wildcat_slam_tpu.odometry.states import SampleStates as JaxSamples
     from wildcat_slam_tpu_torch.odometry import corrections as t_cor

@@ -16,8 +16,16 @@ that bound of each other. K1 (pcg_solve)
 sums the matvec in another order than cuBLAS, and CG amplifies that over 24
 iterations: within 1e-5 of the solution's scale; two kernel runs must give
 the same bits (no float atomics). K3 (self_match) computes integers: its
-partners and rounds equal its plain version's bit for bit.
+partners and rounds equal its plain version's bit for bit. K4 (spd_solve)
+factors in another order than cuSOLVER: its backward error |a x - b| /
+(|a| |x| + |b|) is at most 10 N eps of the dtype and its forward gap to the
+plain solve at most 100 kappa_2(a) eps (``spd.accuracy``), two runs and a
+graph replay give the same bits.
 """
+
+import importlib.util
+import pathlib
+
 
 import numpy as np
 import pytest
@@ -26,7 +34,7 @@ import torch
 from wildcat_slam_tpu_torch.config import WildcatConfig
 from wildcat_slam_tpu_torch.io.synthetic import SyntheticSequence, ate_rmse
 from wildcat_slam_tpu_torch.odometry.pipeline import LidarOdometry
-from wildcat_slam_tpu_torch.ops import knn, pcg
+from wildcat_slam_tpu_torch.ops import knn, pcg, spd
 from wildcat_slam_tpu_torch.ops import self_match as sm
 
 pytestmark = pytest.mark.gpu
@@ -258,17 +266,20 @@ def test_float64_pcg_refused_on_the_card(cuda_device):
 
 
 def test_cholesky_refused_on_the_card(cuda_device):
-    """The sweep graph cannot hold cuSOLVER's float64 triangular solves: a
-    config with linear_solver='cholesky' in float64 is refused on the card
-    when the frontend is built (the CPU runs it); float32 is taken."""
-    with pytest.raises(ValueError, match="cholesky"):
-        LidarOdometry(WildcatConfig(linear_solver="cholesky", dtype="float64"), device=cuda_device)
-    LidarOdometry(WildcatConfig(linear_solver="cholesky", dtype="float64"), device="cpu")
-    LidarOdometry(WildcatConfig(linear_solver="cholesky"), device=cuda_device)
+    """linear_solver='cholesky' runs on kernel K4, which allocates nothing, so
+    the sweep graph holds it in float32 and float64: the card takes both
+    (float64 with linear_solver='pcg' stays refused, K1 being float32)."""
+    for dtype in ("float32", "float64"):
+        LidarOdometry(WildcatConfig(linear_solver="cholesky", dtype=dtype), device=cuda_device)
+        LidarOdometry(WildcatConfig(linear_solver="cholesky", dtype=dtype), device="cpu")
+    with pytest.raises(ValueError, match="K1"):
+        LidarOdometry(WildcatConfig(dtype="float64"), device=cuda_device)
 
 
-@pytest.mark.parametrize("linear_solver", ["pcg", "cholesky"])
-def test_small_graph_run_equals_eager(cuda_device, linear_solver):
+@pytest.mark.parametrize("linear_solver,dtype", [("pcg", "float32"), ("cholesky", "float32"),
+                                                 ("cholesky", "float64")],
+                         ids=["pcg", "cholesky", "cholesky-float64"])
+def test_small_graph_run_equals_eager(cuda_device, linear_solver, dtype):
     """A small config's run on the sweep graph equals its eager run on the
     card (the same frontend with the graph off) bit for bit."""
     from wildcat_slam_tpu_torch.cli import feed_events, synthetic_events
@@ -277,7 +288,7 @@ def test_small_graph_run_equals_eager(cuda_device, linear_solver):
                         max_surfels_sliding=2048, max_surfels_fixed=2048,
                         max_correspondences=2048, max_leaves_per_sweep=4096,
                         max_imu_states=640, max_sample_states=48, inner_iter_num_max=25,
-                        linear_solver=linear_solver)
+                        linear_solver=linear_solver, dtype=dtype)
     events = list(synthetic_events(SyntheticSequence(duration=2.1, points_per_scan=4000,
                                                      room_half=4.0, seed=0)))
     runs = []
@@ -413,3 +424,88 @@ def test_self_match_kernel_equals_plain(cuda_device, case, cap):
     assert torch.equal(partner, ref) and int(rounds) == int(ref_rounds)
     if case == "long chain":  # the chain sets the rounds, unless the cap stops them first
         assert int(rounds) == (5 if cap == 5 else 2001)
+
+
+@pytest.mark.parametrize("q,k", [(1, 1), (1, 10), (1000, 1), (1000, 10), (8192, 1), (8192, 10),
+                                 (35000, 1), (35000, 10)])
+def test_self_match_kernel_at_plan_edges(cuda_device, q, k):
+    """K3 at its plan's edges (Q=35000, k=10: the lists in a global scratch)
+    on random candidates and on chip_smoke's adversarial chains."""
+    rng = np.random.default_rng(q + k)
+    cases = [(torch.as_tensor(rng.integers(0, q, size=(q, k)), device=cuda_device),
+              torch.as_tensor(rng.random((q, k)) < 0.5, device=cuda_device))]
+    if k > 1 and q > 1:
+        cases.append(_chip_smoke().k3_chains(q, k, 5, [min(q // 3, 300)] * 2, cuda_device))
+    for cand, ok in cases:
+        partner, rounds = sm.self_match(cand, ok, q)
+        ref, ref_rounds = sm.self_match_plain(cand, ok, q)
+        assert torch.equal(partner, ref) and int(rounds) == int(ref_rounds)
+
+
+def _chip_smoke():
+    path = pathlib.Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _spd_system(n, m, dtype, dev, seed=0):
+    rng = np.random.default_rng(seed + n + m)
+    g = rng.normal(size=(n, n))
+    return (torch.as_tensor(g @ g.T / n + np.eye(n), dtype=dtype, device=dev),
+            torch.as_tensor(rng.normal(size=(n, m)), dtype=dtype, device=dev))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["float32", "float64"])
+@pytest.mark.parametrize("n", [1, 12, 96, 576, 1152, 3072])
+@pytest.mark.parametrize("m", [1, 6])
+def test_spd_kernel_matches_plain(cuda_device, dtype, n, m):
+    a, b = _spd_system(n, m, dtype, cuda_device)
+    a = a + torch.triu(torch.full_like(a, float("nan")), 1)  # the kernel reads the lower triangle
+    before = spd.LAUNCHES
+    x = spd.spd_solve(a, b)
+    x2 = spd.spd_solve(a, b)
+    assert spd.LAUNCHES == before + 2
+    acc = spd.accuracy(a, b, x, spd.spd_solve_plain(a, b))
+    print(f"K4 N={n} m={m} {dtype}: {acc}")
+    assert torch.equal(x, x2)
+    assert acc["ok"], acc
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["float32", "float64"])
+def test_spd_kernel_nan_on_an_indefinite_system(cuda_device, dtype):
+    small = torch.tensor([[3.5, 2.0, 0.0], [2.0, 0.5, 0.0], [0.0, 0.0, 2.5]], dtype=dtype,
+                         device=cuda_device)
+    a, b = _spd_system(1152, 1, dtype, cuda_device)
+    a[700, 700] = -5.0
+    for aa, bb in ((small, torch.ones((3, 1), dtype=dtype, device=cuda_device)), (a, b)):
+        assert bool(torch.all(torch.isnan(spd.spd_solve(aa, bb))))
+        assert bool(torch.all(torch.isnan(spd.spd_solve_plain(aa, bb))))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["float32", "float64"])
+@pytest.mark.parametrize("n,m", [(96, 6), (1152, 1)])
+def test_spd_kernel_in_a_graph_equals_eager(cuda_device, dtype, n, m):
+    a, b = _spd_system(n, m, dtype, cuda_device)
+    eager = spd.spd_solve(a, b)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        spd.spd_solve(a, b)
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        captured = spd.spd_solve(a, b)
+    for _ in range(2):
+        g.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(captured, eager)
+
+
+def test_spd_kernel_refuses_what_its_plan_cannot_take(cuda_device):
+    a = torch.eye(96, device=cuda_device)
+    with pytest.raises(ValueError, match="right-hand sides"):
+        spd.spd_solve(a, torch.ones((96, 33), device=cuda_device))
+    with pytest.raises(ValueError):
+        spd.spd_solve(a.half(), torch.ones((96, 1), device=cuda_device).half())

@@ -7,7 +7,8 @@
   summation order).
 - The preconditioner helpers within 1e-10 in float64.
 - One ``solve_window`` in float64 against JAX's, for each linear solver:
-  corrections within 1e-8, the same LM iteration count.
+  corrections within 1e-8, the same LM iteration count; and with every
+  Cholesky factorisation failing, both reject each step and grow lambda.
 - Degeneracy remapping in float64: ``degeneracy_projectors`` within 1e-10,
   ``solve_window(remap_proj=...)`` within 1e-8 (summation order only), and
   zero projectors leave the solve bit for bit unchanged.
@@ -168,6 +169,40 @@ def test_solve_window_matches_jax(problem, linear_solver):
         np.testing.assert_allclose(float(getattr(tstat, name)), float(getattr(jstat, name)),
                                    rtol=1e-9)
     assert float(tstat.final_cost) < float(tstat.initial_cost)
+
+def test_failed_cholesky_step_is_rejected_as_in_jax(problem, monkeypatch):
+    """A damped system whose factorisation fails gives a NaN step (JAX's
+    cho_factor, the port's spd_solve): the LM step rejects it through
+    isfinite(new_cost), keeps the state and grows lambda by nu. Both solves
+    are handed the system with its last pivot made negative (a padded
+    state's, whose gradient is zero), so every factorisation fails there; the
+    library's partial factor alone would still give the true step for the
+    other states, and the step would be taken."""
+    import jax.scipy.linalg as jsl
+
+    from wildcat_slam_tpu_torch.ops import spd
+
+    def spoiled(a):
+        a = a.clone()
+        a[-1, -1] = -1.0
+        return a
+
+    (js, jsf, jif), (ts, tsf, tif) = problem
+    j_factor, t_solve_spd = jsl.cho_factor, spd.spd_solve
+    monkeypatch.setattr(jsl, "cho_factor",
+                        lambda a, *args, **kw: j_factor(a.at[-1, -1].set(-1.0), *args, **kw))
+    monkeypatch.setattr(spd, "spd_solve", lambda a, b: t_solve_spd(spoiled(a), b))
+    kw = dict(SOLVE_KW, linear_solver="cholesky", max_iterations=3)
+    # the jitted JAX function's own body, traced anew, so the patch is seen
+    jo, jstat = j_solve.__wrapped__(js, jsf, jif, WEIGHTS, 0.005, js.grav, jnp.asarray(True), **kw)
+    to, tstat = t_solve(ts, tsf, tif, WEIGHTS, 0.005, ts.grav, torch.tensor(True), **kw)
+    lam = SOLVE_KW["init_lambda"] * 2.0 * 4.0 * 8.0  # nu = 2, 4, 8 after each rejection
+    for stat, cor in ((jstat, np.asarray(jo.cor)), (tstat, to.cor.numpy())):
+        assert int(stat.iterations) == 3
+        assert float(stat.final_cost) == float(stat.initial_cost)
+        np.testing.assert_allclose(float(stat.lambda_final), lam, rtol=1e-12)
+        np.testing.assert_array_equal(cor, np.zeros_like(cor))
+
 
 def test_degeneracy_remap_matches_jax(problem):
     (js, jsf, jif), (ts, tsf, tif) = problem

@@ -13,34 +13,18 @@ import torch
 
 from wildcat_slam_tpu_torch.odometry import imu as imu_mod
 from wildcat_slam_tpu_torch.odometry.states import ImuStates, SampleStates, Surfels
-from wildcat_slam_tpu_torch.ops import lie
+from wildcat_slam_tpu_torch.ops import lie, spd
 from wildcat_slam_tpu_torch.ops.spline import basis
-
-
-def _solve_spd(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Solve a x = b for a symmetric positive definite (S, S) ``a`` of
-    bandwidth 2 (nothing past two diagonals from the main one) and (S, m)
-    ``b``: Gaussian elimination, then back substitution, in plain ops. No
-    pivoting: the elimination of an SPD matrix needs none. A library solve
-    does the same work, but its triangular solves (cuBLAS trsm) may allocate
-    inside a graph capture, which the sweep graph cannot hold."""
-    s = a.shape[0]
-    ab = torch.cat([a, b], 1)
-    for k in range(s - 1):
-        lo, hi = k + 1, min(k + 3, s)
-        ab[lo:hi, k:] -= (ab[lo:hi, k] / ab[k, k])[:, None] * ab[k, k:]
-    x = torch.zeros_like(b)
-    for k in range(s - 1, -1, -1):
-        hi = min(k + 3, s)
-        x[k] = (ab[k, s:] - ab[k, k + 1:hi] @ x[k + 1:hi]) / ab[k, k]
-    return x
 
 
 def fit_correction_spline(sample: SampleStates) -> torch.Tensor:
     """LS-fit B-spline control points (S, 6) through the (rot_cor, pos_cor)
     samples; the banded collocation matrix is [1, 4, 1]/6 with the boundary
     lumping of the reference's index clamping. Solves (N^T N) Q = N^T p, as
-    the JAX version does."""
+    the JAX version does (there by ``jnp.linalg.solve``): N^T N is SPD, so by
+    ``ops/spd.spd_solve``, kernel K4 in one launch on the card (a library
+    solve's triangular solves may allocate inside a graph capture, which the
+    sweep graph cannot hold), its plain version on the CPU."""
     s = sample.capacity
     n = sample.count
     dtype = sample.cor.dtype
@@ -56,7 +40,7 @@ def fit_correction_spline(sample: SampleStates) -> torch.Tensor:
         nmat = nmat + hit.to(dtype) * w
     nmat = torch.where(live[:, None], nmat, torch.eye(s, dtype=dtype, device=dev))
     p = torch.where(live[:, None], torch.cat([sample.cor[:, 0:3], sample.cor[:, 3:6]], 1), 0.0)
-    return _solve_spd(nmat.T @ nmat, nmat.T @ p)
+    return spd.spd_solve(nmat.T @ nmat, nmat.T @ p)
 
 
 def eval_correction_spline(sample: SampleStates, q: torch.Tensor, query_t: torch.Tensor):

@@ -40,9 +40,9 @@ import numpy as np
 import torch
 
 from wildcat_slam_tpu_torch.odometry.states import TensorStruct
-from wildcat_slam_tpu_torch.ops import _build, knn, pcg, self_match
+from wildcat_slam_tpu_torch.ops import _build, knn, pcg, self_match, spd
 
-KERNELS = ("pcg", "knn", "knn_mxu", "self_match")
+KERNELS = ("pcg", "knn", "knn_mxu", "self_match", "spd")
 CAPTURED: collections.Counter = collections.Counter()
 _REPLAYED = {}  # device -> (len(KERNELS),) int64 launch counter that the graphs add to
 
@@ -50,7 +50,7 @@ _REPLAYED = {}  # device -> (len(KERNELS),) int64 launch counter that the graphs
 def wrapper_counts() -> collections.Counter:
     """The kernel wrappers' launch counts, by kernel."""
     return collections.Counter(pcg=pcg.LAUNCHES, knn=knn.LAUNCHES, knn_mxu=knn.MXU_LAUNCHES,
-                               self_match=self_match.LAUNCHES)
+                               self_match=self_match.LAUNCHES, spd=spd.LAUNCHES)
 
 
 def replay_counter(dev: torch.device) -> torch.Tensor:
@@ -63,7 +63,7 @@ def replay_counter(dev: torch.device) -> torch.Tensor:
 
 def reset_counts() -> None:
     """Every launch count to 0: the wrappers', the captures' and the replays'."""
-    pcg.LAUNCHES = knn.LAUNCHES = knn.MXU_LAUNCHES = self_match.LAUNCHES = 0
+    pcg.LAUNCHES = knn.LAUNCHES = knn.MXU_LAUNCHES = self_match.LAUNCHES = spd.LAUNCHES = 0
     CAPTURED.clear()
     for counter in _REPLAYED.values():
         counter.zero_()

@@ -53,6 +53,7 @@ from wildcat_slam_tpu_torch.odometry.solver import residual_snapshot, solve_wind
 from wildcat_slam_tpu_torch.odometry.states import (ImuStates, SampleStates, Surfels,
                                                     TensorStruct, concat)
 from wildcat_slam_tpu_torch.odometry.surfel import extract_surfels
+from wildcat_slam_tpu_torch.ops import spd
 
 
 class OutOfOrderError(ValueError):
@@ -209,19 +210,24 @@ def process_sweep(state: WindowState, imu_t, imu_acc, imu_gyr, imu_n, sample_t, 
 
 def check_card_config(cfg: WildcatConfig) -> None:
     """Raise for a config the card cannot run: ``linear_solver="pcg"`` takes
-    kernel K1, which is float32 only, and ``linear_solver="cholesky"`` in
-    float64 allocates inside the sweep graph's capture."""
+    kernel K1, which is float32 only, and the dense solves take kernel K4
+    (``ops/spd.py``): the spline fit's (S, S) system with 6 right-hand sides
+    always, the damped LM system (12 S, 12 S) with ``linear_solver=
+    "cholesky"``, in float32 or float64; K4's plan refuses what one block
+    cannot hold for its back substitution."""
     if cfg.dtype != "float32" and cfg.linear_solver == "pcg":
         raise ValueError(
             f"dtype={cfg.dtype!r} with linear_solver='pcg' cannot run on the card: kernel K1 "
             "(csrc/pcg.cu) takes float32; use dtype='float32', or linear_solver='pcg_xla' "
             "for float64 there")
-    if cfg.dtype != "float32" and cfg.linear_solver == "cholesky":
-        raise ValueError(
-            f"linear_solver='cholesky' with dtype={cfg.dtype!r} cannot run on the card: the "
-            "sweep runs as one composed CUDA graph (odometry/graph.py), and cuSOLVER's float64 "
-            "triangular solves allocate memory inside its capture, which the composed graph "
-            "cannot hold; use dtype='float32', or linear_solver='pcg_xla' for float64 there")
+    s_cap = cfg.max_sample_states
+    systems = [(s_cap, 6)] + ([(12 * s_cap, 1)] if cfg.linear_solver == "cholesky" else [])
+    for n, m in systems:
+        if not spd.supports(n, m, getattr(torch, cfg.dtype)):
+            raise ValueError(
+                f"max_sample_states={s_cap} cannot run on the card: kernel K4 (csrc/spd_solve.cu) "
+                f"does not take an ({n}, {n}) {cfg.dtype} system with {m} right-hand sides "
+                f"(ops/spd.py, plan)")
 
 
 class LidarOdometry:

@@ -15,10 +15,12 @@ runs in a device-side WHILE node, the flags read by a kernel.
 Linear solver: ``"pcg"`` calls ``ops/pcg.pcg_solve``, which launches kernel
 K1 on CUDA float32 tensors, runs its plain version on CPU tensors and raises
 otherwise; ``"pcg_xla"`` calls the plain version ``pcg_solve_plain`` directly
-(the role of the JAX package's portable ``_pcg_solve``); ``"cholesky"`` uses
-``torch.linalg.cholesky_ex`` (the CPU only: ``LidarOdometry`` refuses it on
-the card, whose sweep graph cannot hold cuSOLVER's triangular solves). Both
-PCGs fold the damping into the matvec.
+(the role of the JAX package's portable ``_pcg_solve``); ``"cholesky"`` calls
+``ops/spd.spd_solve`` on the damped system, which launches kernel K4 on CUDA
+tensors (float32 and float64; one node of the sweep graph) and runs its plain
+version (``torch.linalg.cholesky_ex``, NaN when the factorisation fails, as
+JAX's ``cho_factor``) on CPU tensors. Both PCGs fold the damping into the
+matvec.
 
 With ``remap_proj`` (degeneracy solution remapping) the common-mode mean of
 the per-state rotation and position steps is projected off the weak axes
@@ -35,6 +37,7 @@ import torch
 from wildcat_slam_tpu_torch.odometry import factors as fmod
 from wildcat_slam_tpu_torch.odometry.states import SampleStates
 from wildcat_slam_tpu_torch.ops import pcg as pcg_mod
+from wildcat_slam_tpu_torch.ops import spd as spd_mod
 
 
 def _shift_down(a, d: int):
@@ -196,9 +199,8 @@ def solve_window(sample: SampleStates, sfac, ifac, weights, dt: float, grav,
     def linear_solve(h, g, lam, d):
         dlam = lam * d
         if linear_solver == "cholesky":
-            # cholesky_ex checks nothing on the host (jax.scipy's cho_factor neither)
-            chol = torch.linalg.cholesky_ex(h + torch.diag(dlam), check_errors=False)[0]
-            return -torch.cholesky_solve(g[:, None], chol)[:, 0]
+            # NaN when a pivot fails, as jax.scipy's cho_factor: the step is rejected
+            return -spd_mod.spd_solve(h + torch.diag(dlam), g[:, None])[:, 0]
         minv = pcg_mod.block_diag_inverse(h, dlam, s_cap)
         solve = pcg_mod.pcg_solve if linear_solver == "pcg" else pcg_mod.pcg_solve_plain
         return solve(h, dlam, minv, -g, pcg_iters, pcg_tol)

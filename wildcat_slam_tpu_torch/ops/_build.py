@@ -22,7 +22,8 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("pcg.cu", "knn_bins.cu", "knn_mxu.cu", "self_match.cu", "sweep_graph.cu")
+SOURCES = ("pcg.cu", "knn_bins.cu", "knn_mxu.cu", "self_match.cu", "spd_solve.cu",
+           "sweep_graph.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -82,46 +83,50 @@ def build() -> Path:
             obj.unlink(missing_ok=True)
     os.replace(tmp, so)
     seconds = time.perf_counter() - t0
-    ptxas = [ln for ln in stderr.splitlines() if "ptxas" in ln]
+    ptxas = [ln for ln in stderr.splitlines() if "ptxas" in ln or "spill" in ln]
     print(f"built {so.name} in {seconds:.1f} s", file=sys.stderr)
     for ln in ptxas:
         print(ln, file=sys.stderr)
     return so
 
 
+_VP, _I32, _PP = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_void_p)
+# the C entry points: (argument types, return type)
+SIGNATURES = {
+    "wc_pcg_solve": ([_VP] * 6 + [_I32, _I32, ctypes.c_float, _I32, _I32, _I32, _I32, _VP],
+                     _I32),
+    "wc_knn_bins": ([_VP] * 4 + [_I32] * 8 + [_VP], _I32),
+    "wc_knn_mxu": ([_VP] * 5 + [_I32] * 8 + [_VP], _I32),
+    "wc_self_match": ([_VP] * 5 + [_I32] * 6 + [_VP], _I32),
+    "wc_spd_solve": ([_VP] * 5 + [_I32] * 6 + [_VP], _I32),
+    "wc_graph_create": ([_PP], _I32),
+    "wc_graph_add_child": ([_VP, _PP, _VP], _I32),
+    "wc_graph_add_lm_loop": ([_VP, _PP, _VP, _VP, _VP, _VP, _I32], _I32),
+    "wc_graph_instantiate": ([_VP, _PP], _I32),
+    "wc_graph_launch": ([_VP, _VP], _I32),
+    "wc_graph_destroy": ([_VP, _VP], _I32),
+    "wc_graph_nodes": ([_VP, ctypes.POINTER(ctypes.c_ulonglong)], _I32),
+    "wc_knn_mxu_resources": ([ctypes.POINTER(_I32)], _I32),
+    "wc_error_string": ([_I32], ctypes.c_char_p),
+}
+
+
+def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the argument and return types of the entry points that ``lib``
+    holds (all of them in the kernel library; a library built from one
+    source, as the probes build, holds its own)."""
+    for name, (argtypes, restype) in SIGNATURES.items():
+        if hasattr(lib, name):
+            fn = getattr(lib, name)
+            fn.argtypes, fn.restype = argtypes, restype
+    return lib
+
+
 def library() -> ctypes.CDLL:
     """The loaded kernel library (built on first call)."""
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.wc_pcg_solve.argtypes = [vp, vp, vp, vp, vp, vp, i32, i32, f32, i32, i32, i32, i32, vp]
-        lib.wc_pcg_solve.restype = i32
-        lib.wc_knn_bins.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32, i32, i32, i32, i32,
-                                    vp]
-        lib.wc_knn_bins.restype = i32
-        lib.wc_knn_mxu.argtypes = [vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, i32, i32, i32,
-                                   vp]
-        lib.wc_knn_mxu.restype = i32
-        lib.wc_self_match.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32, i32, vp]
-        lib.wc_self_match.restype = i32
-        pp = ctypes.POINTER(vp)
-        lib.wc_graph_create.argtypes = [pp]
-        lib.wc_graph_add_child.argtypes = [vp, pp, vp]
-        lib.wc_graph_add_lm_loop.argtypes = [vp, pp, vp, vp, vp, vp, i32]
-        lib.wc_graph_instantiate.argtypes = [vp, pp]
-        lib.wc_graph_launch.argtypes = [vp, vp]
-        lib.wc_graph_destroy.argtypes = [vp, vp]
-        lib.wc_graph_nodes.argtypes = [vp, ctypes.POINTER(ctypes.c_ulonglong)]
-        for name in ("wc_graph_create", "wc_graph_add_child", "wc_graph_add_lm_loop",
-                     "wc_graph_instantiate", "wc_graph_launch", "wc_graph_destroy",
-                     "wc_graph_nodes"):
-            getattr(lib, name).restype = i32
-        lib.wc_knn_mxu_resources.argtypes = [ctypes.POINTER(i32)]
-        lib.wc_knn_mxu_resources.restype = i32
-        lib.wc_error_string.argtypes = [i32]
-        lib.wc_error_string.restype = ctypes.c_char_p
-        _lib = lib
+        _lib = declare(ctypes.CDLL(str(build())))
     return _lib
 
 

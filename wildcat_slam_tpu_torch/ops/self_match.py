@@ -4,12 +4,13 @@ version.
 Counterpart of the ``lax.while_loop`` in ``wildcat_slam_tpu/odometry/match.py``
 (``match_surfels(self_match=True)``, ``fp_body``/``fp_cond``), which the JAX
 package runs on the device. Each round recomputes every query's first
-accepted candidate that is not blocked, where rank r of query p is blocked
-when its candidate c = cand[p, r] has p as its current partner and p > c;
-the rounds stop when no partner changes, or after ``max_rounds``. On a CUDA
-tensor :func:`self_match` launches ``csrc/self_match.cu`` (one block that
-iterates to the fixed point, laid out by :func:`plan`); on a CPU tensor it
-runs :func:`self_match_plain`, the same rounds with one host sync each.
+accepted candidate that is not blocked, where rank r of query q is blocked
+when its candidate c = cand[q, r] satisfies 0 <= c < q and has q as its
+current partner; the rounds stop when no partner changes, or after
+``max_rounds``. On a CUDA tensor :func:`self_match` launches
+``csrc/self_match.cu`` (one block that iterates to the fixed point, laid
+out by :func:`plan`); on a CPU tensor it runs :func:`self_match_plain`, the
+same rounds with one host sync each.
 """
 
 from __future__ import annotations
@@ -22,30 +23,42 @@ from wildcat_slam_tpu_torch.ops import _build
 
 LAUNCHES = 0  # kernel launches by self_match (not by self_match_plain)
 
-# csrc/self_match.cu: one block of THREADS threads; partner (4 Q bytes) and
-# the ok and dup bitmaps (Q k bits each) in its dynamic shared memory
+# csrc/self_match.cu: one block of THREADS threads; the partners, two 16-bit
+# buffers (4 Q bytes), in its dynamic shared memory, and beside them each
+# query's candidate list (k + 1 16-bit slots, each slot a row of
+# list_stride(Q) values) when those 2 (k + 1) list_stride(Q) bytes fit, else
+# in a global scratch
 THREADS = 1024
+MAX_QUERIES = 0xFFFE  # 16-bit partners and list slots; 0xFFFF and 0xFFFE are markers
 H100_SMEM_PER_BLOCK = 232_448  # opt-in shared memory of one block (227 KB)
 
 
+def list_stride(q: int) -> int:
+    """The lists' row stride in 16-bit slots: Q rounded up to 64, plus 2
+    (csrc/self_match.cu, list_stride: fewer shared-memory bank conflicts)."""
+    return -(-q // 64) * 64 + 2
+
+
 class Plan(NamedTuple):
-    threads: int     # the block's threads (the kernel is built for THREADS)
-    smem_bytes: int  # partner, then the ok and dup bitmaps
+    threads: int        # the block's threads (the kernel is built for THREADS)
+    smem_bytes: int     # the two partner buffers, then the lists when they fit
+    shared_lists: bool  # the lists in shared memory (else in a global scratch)
 
 
 def plan(q: int, k: int, smem_per_block: int = H100_SMEM_PER_BLOCK) -> Plan:
     """The kernel's launch for Q queries of k candidates. Raises ValueError
-    when partner and the two bitmaps do not fit one block's shared memory."""
+    when the two partner buffers do not fit one block's shared memory."""
     if q < 1 or k < 1:
         raise ValueError(f"self_match: needs Q >= 1 and k >= 1, got Q={q}, k={k}")
-    words = -(-q * k // 32)
-    smem = 4 * (q + 2 * words)
-    if smem > smem_per_block:
+    partners = 4 * q
+    if q > MAX_QUERIES or partners > smem_per_block:
         raise ValueError(
-            f"self_match: Q={q}, k={k} needs {smem} bytes of shared memory (4 Q for the "
-            f"partners and 2 x 4 ceil(Q k / 32) for the ok and dup bitmaps), more than the "
-            f"{smem_per_block} one block can hold: Q (4 + k / 4) <= {smem_per_block}")
-    return Plan(THREADS, smem)
+            f"self_match: Q={q} needs {partners} bytes of shared memory for the partners (two "
+            f"16-bit buffers), more than the {smem_per_block} one block can hold, or more than "
+            f"{MAX_QUERIES} queries")
+    lists = 2 * list_stride(q) * (k + 1)
+    shared = partners + lists <= smem_per_block
+    return Plan(THREADS, partners + lists if shared else partners, shared)
 
 
 def supports(q: int, k: int) -> bool:
@@ -102,11 +115,14 @@ def self_match(cand: torch.Tensor, ok: torch.Tensor, max_rounds: int):
     cand, ok = cand.contiguous(), ok.contiguous()
     partner = torch.empty((q,), dtype=torch.int64, device=dev)
     rounds = torch.empty((1,), dtype=torch.int32, device=dev)
+    lists = None if p.shared_lists else torch.empty(list_stride(q) * (k + 1), dtype=torch.int16,
+                                                    device=dev)
     lib = _build.library()
     with torch.cuda.device(dev):  # the C entry launches on the current card
         err = lib.wc_self_match(cand.data_ptr(), ok.data_ptr(), partner.data_ptr(),
-                                rounds.data_ptr(), q, k, int(max_rounds), *p,
-                                torch.cuda.current_stream(dev).cuda_stream)
+                                rounds.data_ptr(), None if lists is None else lists.data_ptr(),
+                                q, k, int(max_rounds), p.threads, p.smem_bytes,
+                                int(p.shared_lists), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "wc_self_match")
     LAUNCHES += 1
     return partner, rounds[0].to(torch.int64)

@@ -68,8 +68,7 @@ def build(srcs: dict) -> dict:
         notes += [lines[i + 1] for i, ln in enumerate(lines[:-1])
                   if "Function properties" in ln and "14knn_mxu_kernel" in ln]
         note = "; ".join(ln.split("info    :")[-1].strip() for ln in notes)
-        lib = ctypes.CDLL(str((out_dir / f"{name}.cu").with_suffix(".so")))
-        lib.wc_knn_mxu.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+        lib = _build.declare(ctypes.CDLL(str((out_dir / f"{name}.cu").with_suffix(".so"))))
         libs[name] = (lib, note)
     return libs
 

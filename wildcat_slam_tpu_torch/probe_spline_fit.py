@@ -4,15 +4,15 @@ scan, ~100 sweeps) with the fit computed three ways, and in float64.
 
     python -m wildcat_slam_tpu_torch.probe_spline_fit
 
-- ``plain``: the port as it is, (N^T N) Q = N^T p solved in plain ops
-  (``corrections._solve_spd``), on the sweep graph;
+- ``kernel``: the port as it is, (N^T N) Q = N^T p solved by kernel K4
+  (``ops/spd.spd_solve``), on the sweep graph;
 - ``operator``: Q = A_n p, with A_n = (N^T N)^-1 N^T made once per live
   count in float64 on the host and cast to the run's dtype, on the sweep
   graph;
 - ``library``: the normal equations solved by ``torch.linalg.solve_ex`` (LU
   in cuSOLVER), run eagerly (its triangular solves may allocate inside a
   capture);
-- ``float64``: ``plain`` with ``dtype="float64", linear_solver="pcg_xla"``.
+- ``float64``: ``kernel`` with ``dtype="float64", linear_solver="pcg_xla"``.
 
 For each it prints the ATE (unaligned, against the sequence's ground
 truth), the LM iterations a sweep (min, median, max), the sweeps that ran
@@ -36,6 +36,7 @@ from wildcat_slam_tpu_torch.config import WildcatConfig
 from wildcat_slam_tpu_torch.io.synthetic import SyntheticSequence, ate_rmse
 from wildcat_slam_tpu_torch.odometry import corrections as cor_mod
 from wildcat_slam_tpu_torch.odometry.pipeline import LidarOdometry
+from wildcat_slam_tpu_torch.ops import spd
 
 
 @functools.lru_cache(maxsize=None)
@@ -65,18 +66,18 @@ def fit_operator(sample) -> torch.Tensor:
 
 
 def fit_library(sample) -> torch.Tensor:
-    solve = cor_mod._solve_spd
-    cor_mod._solve_spd = lambda a, b: torch.linalg.solve_ex(a, b, check_errors=False)[0]
+    solve = spd.spd_solve  # the default config's LM runs pcg: only the fit calls it
+    spd.spd_solve = lambda a, b: torch.linalg.solve_ex(a, b, check_errors=False)[0]
     try:
-        return PLAIN(sample)
+        return KERNEL(sample)
     finally:
-        cor_mod._solve_spd = solve
+        spd.spd_solve = solve
 
 
-PLAIN = cor_mod.fit_correction_spline
-VARIANTS = {"plain": (PLAIN, True, {}), "operator": (fit_operator, True, {}),
+KERNEL = cor_mod.fit_correction_spline
+VARIANTS = {"kernel": (KERNEL, True, {}), "operator": (fit_operator, True, {}),
             "library": (fit_library, False, {}),
-            "float64": (PLAIN, True, dict(dtype="float64", linear_solver="pcg_xla"))}
+            "float64": (KERNEL, True, dict(dtype="float64", linear_solver="pcg_xla"))}
 
 
 def main() -> int:
@@ -97,7 +98,7 @@ def main() -> int:
             cli.feed_events(lo, events)
             its = np.asarray([s["iterations"] for s in lo.stats])
         finally:
-            cor_mod.fit_correction_spline = PLAIN
+            cor_mod.fit_correction_spline = KERNEL
         iters[name] = its
         ate = ate_rmse(lo.trajectory, lambda t: seq.gt_pose(t)[0], align=False)
         capped = np.flatnonzero(its >= cfg.inner_iter_num_max).tolist()

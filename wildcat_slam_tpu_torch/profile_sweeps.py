@@ -63,6 +63,36 @@ LAUNCH_KEYS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
 SYNC_KEYS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize")
 
 
+def graph_ms(fn, reps: int = 20, runs: int = 5) -> float:
+    """Milliseconds per call of ``fn`` on the device without the host's
+    launch overhead: ``reps`` calls captured in one CUDA graph, replayed
+    between CUDA events, divided by ``reps``; the median of ``runs``
+    (``chip_smoke.py``'s ``graph_ms`` and the probes)."""
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # the warm-up capture needs, off the capturing stream
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(reps):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        g.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / reps)
+    times.sort()
+    return times[len(times) // 2]
+
+
 def _run(seq, device, on_sweep=None, graph: bool = True) -> pipeline.LidarOdometry:
     """Feed the whole sequence; ``on_sweep(lo)`` runs before each scan.
     ``graph=False`` runs every sweep eagerly (the stage timings need the
