@@ -27,9 +27,12 @@ non-zero):
                 at a ragged Q, one query and Q=35000 (its lists in a global
                 scratch), bit-equal to its plain version; K4 (spd_solve) in
                 float32 and float64 at N=96, m=6 and N=1152, m=1 (the main
-                path's shapes) and N=1, 12, 130, 576, 3072, held to its
-                backward-error and forward-gap bounds, NaN on indefinite
-                systems, and a graph replay equal to its eager call;
+                path's shapes), N=1, 12, 130, 576, 3072, at the largest N
+                its one-block path takes (256 f32, 160 f64) and one above
+                (the tile dataflow), and N=700 (a ragged last tile on the
+                dataflow), held to its backward-error and forward-gap
+                bounds, NaN on indefinite systems, and a graph replay equal
+                to its eager call;
   4. main    -- LidarOdometry(WildcatConfig(), device="cuda") on an 8 s
                 synthetic sequence at 64k points per sweep: its first sweep
                 eager, the rest on its sweep graph (odometry/graph.py); ATE <
@@ -46,7 +49,9 @@ non-zero):
                 PyTorch call as yardstick (library_ms; none computes K3's
                 fixed point, so K3's is null), and each kernel's bound; K4
                 on the spline fit's system and on the first damped LM system
-                (from K1's inputs) in float32 and float64;
+                (from K1's inputs) in float32 and float64, the library's
+                cholesky_ex + cholesky_solve also timed back to back
+                (library_device_ms, beside K4's device_ms);
                 then K1's S-scaling table: K1 on the random S=96/192/256
                 systems, its time, iterations run, bound and share of it;
                 then each wrapper's cost (wrapper_costs): device time, time
@@ -157,7 +162,9 @@ overhead; device_ms is CUDA events around 20 back-to-back calls divided by
 20, the median of 5 such runs, where that overhead hides behind the device's
 work unless it is the larger; graph_ms (K3, K4, whose wrappers cost the host
 more than their launches cost the device at the main path's shapes) is 20
-calls captured in one CUDA graph and replayed, divided by 20.
+calls captured in one CUDA graph and replayed, divided by 20; K4's
+library_device_ms is its yardstick's device_ms (cholesky_ex without its
+error check, then cholesky_solve: no host sync between calls).
 
 Bounds (bound_ms): the larger of the bytes each kernel must move (inputs read
 once, outputs written once) over 3.35 TB/s and its operations over the peak
@@ -837,7 +844,9 @@ def _k4_bound(n: int, m: int, itemsize: int) -> tuple:
 
 def k4_times(a, b, err: float) -> dict:
     """K4's row: its times (single calls, back to back, graph replays), the
-    plain version's, the library's (cholesky + cholesky_solve) and its bound."""
+    plain version's, the library's (cholesky + cholesky_solve: single calls,
+    and back to back without cholesky's host-syncing error check) and its
+    bound."""
     import torch
 
     from wildcat_slam_tpu_torch.ops import spd
@@ -846,19 +855,23 @@ def k4_times(a, b, err: float) -> dict:
     def library():
         return torch.cholesky_solve(b, torch.linalg.cholesky(a))
 
+    def library_unchecked():
+        return torch.cholesky_solve(b, torch.linalg.cholesky_ex(a, check_errors=False)[0])
+
     bound_ms, bound_by = _k4_bound(a.shape[0], b.shape[1], a.element_size())
     return dict(max_abs_err=err, ms=_time_ms(lambda: spd.spd_solve(a, b)),
                 device_ms=_device_ms(lambda: spd.spd_solve(a, b)),
                 graph_ms=graph_ms(lambda: spd.spd_solve(a, b)),
                 plain_ms=_time_ms(lambda: spd.spd_solve_plain(a, b)),
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=_time_ms(library))
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=_time_ms(library),
+                library_device_ms=_device_ms(library_unchecked))
 
 
 def phase_kernels(dev) -> None:
     import numpy as np
     import torch
 
-    from wildcat_slam_tpu_torch.ops import knn
+    from wildcat_slam_tpu_torch.ops import knn, spd
 
     # K1 at the main path's S=96 (iters 24, tol 1e-2), then S=192/256, then
     # the edges: no iteration, a system that exits early, a small grid (S=8)
@@ -921,13 +934,17 @@ def phase_kernels(dev) -> None:
              torch.ones((1, 10), dtype=torch.bool, device=dev), 1)
     check_k3("Q=35000, lists in global memory", *k3_chains(35000, 10, 4, [50] * 10, dev), 35000)
     # K4 at the main path's shapes (the spline fit's N=96, m=6; the damped LM
-    # system's N=1152, m=1) and at the edges of its plan (one tile; a ragged
-    # last tile on 2 blocks; N=3072 on the whole card), in both dtypes; an
-    # indefinite system; a graph capture
+    # system's N=1152, m=1) and at the edges of its plan (one tile; the
+    # largest N of its one-block path and one above it, on the tile dataflow;
+    # a ragged last tile on the dataflow; N=3072 on the whole card), in both
+    # dtypes; an indefinite system; a graph capture
     for dtype in (torch.float32, torch.float64):
-        for n, m in ((96, 6), (1152, 1), (1, 1), (12, 6), (130, 6), (576, 1), (3072, 1),
-                     (3072, 6)):
-            check_k4("random", *spd_system(dev, n, m, dtype))
+        limit = spd.one_block_limit(torch.finfo(dtype).bits // 8)
+        for n, m in ((96, 6), (1152, 1), (1, 1), (12, 6), (130, 6), (576, 1), (limit, 6),
+                     (limit + 1, 6), (700, 6), (3072, 1), (3072, 6)):
+            path = "one block" if spd.plan(n, m, torch.finfo(dtype).bits // 8).one_block \
+                else "dataflow"
+            check_k4(f"random ({path})", *spd_system(dev, n, m, dtype))
         check_k4_edges(dev, dtype)
 
 
@@ -1151,14 +1168,16 @@ def phase_replay(recorded: dict) -> dict:
     out["spd"] = k4_times(a_fit, b_fit, check_k4("main-path spline fit", a_fit, b_fit))
     _print_times(f"K4 spd_solve main-path spline fit N={a_fit.shape[0]} m={b_fit.shape[1]}",
                  out["spd"], "cholesky + cholesky_solve", f"; graph replays "
-                 f"{out['spd']['graph_ms']:.4f} ms")
+                 f"{out['spd']['graph_ms']:.4f} ms; library back to back "
+                 f"{out['spd']['library_device_ms']:.4f} ms")
     h_lm, dlam_lm, _, b_lm, _, _ = recorded["pcg"]
     for dtype in (torch.float32, torch.float64):
         a_lm, rhs = (h_lm + torch.diag(dlam_lm)).to(dtype), b_lm[:, None].to(dtype)
         r = k4_times(a_lm, rhs, check_k4("main-path LM system", a_lm, rhs))
         _print_times(f"K4 spd_solve main-path LM system N={a_lm.shape[0]} m=1 "
                      f"{str(dtype)[6:]}", r, "cholesky + cholesky_solve",
-                     f"; graph replays {r['graph_ms']:.4f} ms")
+                     f"; graph replays {r['graph_ms']:.4f} ms; library back to back "
+                     f"{r['library_device_ms']:.4f} ms")
 
     # K1's S-scaling table on the random systems of phase 3 (iters 24, tol 1e-2)
     sms = torch.cuda.get_device_properties(h.device).multi_processor_count

@@ -320,15 +320,16 @@ def test_self_match_plan_states_its_limit():
 def test_cholesky_refused_for_the_card(monkeypatch):
     """linear_solver='cholesky' runs on kernel K4 in float32 and float64, so
     the card takes both; float64 with linear_solver='pcg' (K1 is float32
-    only) and a system K4's plan cannot hold are refused before anything is
-    placed there (the card stood in for by is_available). The CPU runs
-    both."""
+    only) and a system K4's plan cannot take (N = 12 S above its 65536) are
+    refused before anything is placed there (the card stood in for by
+    is_available). The CPU runs both."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     for dtype in ("float32", "float64"):
         pipeline.check_card_config(WildcatConfig(**TINY, linear_solver="cholesky", dtype=dtype))
     with pytest.raises(ValueError, match="K1"):
         pipeline.LidarOdometry(WildcatConfig(**TINY, dtype="float64"), device="cuda")
-    big = 2500  # N = 30000: x (8 N bytes) outgrows one block's shared memory
+    assert spd.supports(12 * 2500, 1, torch.float64)  # N = 30000: the tile dataflow takes it
+    big = spd.MAX_N // 12 + 1  # N = 65544
     assert not spd.supports(12 * big, 1, torch.float64) and spd.supports(big, 6, torch.float64)
     with pytest.raises(ValueError, match="K4"):
         pipeline.check_card_config(WildcatConfig(**dict(TINY, max_sample_states=big),

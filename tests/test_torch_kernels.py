@@ -474,6 +474,26 @@ def test_spd_kernel_matches_plain(cuda_device, dtype, n, m):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["float32", "float64"])
+@pytest.mark.parametrize("case", ["one_block_limit", "one_above", "ragged_dataflow"])
+def test_spd_kernel_at_its_plan_edges(cuda_device, dtype, case):
+    """K4 at the largest N its one-block path takes (256 in float32, 160 in
+    float64), at one more (the tile dataflow on a few blocks), and with a
+    ragged last tile on the dataflow (N=700 = 21 * 32 + 28), 6 right-hand
+    sides."""
+    itemsize = torch.finfo(dtype).bits // 8
+    limit = spd.one_block_limit(itemsize)
+    n = {"one_block_limit": limit, "one_above": limit + 1, "ragged_dataflow": 700}[case]
+    assert spd.plan(n, 6, itemsize).one_block == (case == "one_block_limit")
+    a, b = _spd_system(n, 6, dtype, cuda_device)
+    a = a + torch.triu(torch.full_like(a, float("nan")), 1)
+    x = spd.spd_solve(a, b)
+    acc = spd.accuracy(a, b, x, spd.spd_solve_plain(a, b))
+    print(f"K4 N={n} m=6 {dtype}: {acc}")
+    assert torch.equal(x, spd.spd_solve(a, b))
+    assert acc["ok"], acc
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["float32", "float64"])
 def test_spd_kernel_nan_on_an_indefinite_system(cuda_device, dtype):
     small = torch.tensor([[3.5, 2.0, 0.0], [2.0, 0.5, 0.0], [0.0, 0.0, 2.5]], dtype=dtype,
                          device=cuda_device)

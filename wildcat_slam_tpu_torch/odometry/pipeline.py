@@ -213,8 +213,8 @@ def check_card_config(cfg: WildcatConfig) -> None:
     kernel K1, which is float32 only, and the dense solves take kernel K4
     (``ops/spd.py``): the spline fit's (S, S) system with 6 right-hand sides
     always, the damped LM system (12 S, 12 S) with ``linear_solver=
-    "cholesky"``, in float32 or float64; K4's plan refuses what one block
-    cannot hold for its back substitution."""
+    "cholesky"``, in float32 or float64; K4's plan refuses N above
+    ``spd.MAX_N`` (its item and flag indices)."""
     if cfg.dtype != "float32" and cfg.linear_solver == "pcg":
         raise ValueError(
             f"dtype={cfg.dtype!r} with linear_solver='pcg' cannot run on the card: kernel K1 "
@@ -227,7 +227,7 @@ def check_card_config(cfg: WildcatConfig) -> None:
             raise ValueError(
                 f"max_sample_states={s_cap} cannot run on the card: kernel K4 (csrc/spd_solve.cu) "
                 f"does not take an ({n}, {n}) {cfg.dtype} system with {m} right-hand sides "
-                f"(ops/spd.py, plan)")
+                f"(ops/spd.py, plan: N up to {spd.MAX_N})")
 
 
 class LidarOdometry:

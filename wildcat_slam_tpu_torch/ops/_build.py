@@ -98,7 +98,7 @@ SIGNATURES = {
     "wc_knn_bins": ([_VP] * 4 + [_I32] * 8 + [_VP], _I32),
     "wc_knn_mxu": ([_VP] * 5 + [_I32] * 8 + [_VP], _I32),
     "wc_self_match": ([_VP] * 5 + [_I32] * 6 + [_VP], _I32),
-    "wc_spd_solve": ([_VP] * 5 + [_I32] * 6 + [_VP], _I32),
+    "wc_spd_solve": ([_VP] * 5 + [_I32] * 8 + [_VP], _I32),
     "wc_graph_create": ([_PP], _I32),
     "wc_graph_add_child": ([_VP, _PP, _VP], _I32),
     "wc_graph_add_lm_loop": ([_VP, _PP, _VP, _VP, _VP, _VP, _I32], _I32),

@@ -23,60 +23,87 @@ from wildcat_slam_tpu_torch.ops import _build
 
 LAUNCHES = 0  # kernel launches by spd_solve (not by spd_solve_plain)
 
-# csrc/spd_solve.cu: 32-wide tiles, 8 warps a block; each warp holds three
-# tiles (rows padded to 36 floats or 34 doubles) and 32 reciprocals in shared
-# memory while it factors and updates; the back substitution keeps x and the
-# warps' partial sums there instead
+# csrc/spd_solve.cu: 32 x 32 tiles of [a b; b^T .], shared tiles with rows of
+# 36 values. One block of 8 warps when every tile fits its shared memory;
+# else the tile dataflow, where each warp keeps four tiles (its own two, two
+# staged) and 5 x 32 values in shared memory
 TILE = 32
-THREADS = 256
-WARPS = THREADS // 32
+STRIDE = 36
+ONE_BLOCK_WARPS = 8
+MAX_WARPS = 8        # a block of the dataflow (the kernel's launch bounds)
 MAX_RHS = TILE       # the right-hand sides ride in one extra tile row
-ONE_BLOCK_TILES = 4  # N <= 128: one block, its barriers __syncthreads()
+MAX_N = 65536        # the kernel's item and flag indices
 H100_SMS = 132
 H100_SMEM_PER_BLOCK = 232_448  # opt-in shared memory of one block (227 KB)
 
 
 class Plan(NamedTuple):
+    one_block: bool  # every tile in one block's shared memory, else the tile dataflow
     grid: int        # blocks (cooperative when more than one)
+    warps: int       # warps a block
     tiles: int       # P = ceil(N / 32) tile rows of the factor
     smem_bytes: int  # dynamic shared memory per block
-    workspace: int   # elements of the workspace tensor
+    workspace: int   # elements of the workspace tensor (the dataflow's)
+    flags: int       # int32 flags (the dataflow's)
 
 
-def work_items(tiles: int, k: int) -> int:
-    """Tiles that phase k of the factorisation updates: the column k tiles
-    (the diagonal one, those below it and the right-hand sides' tile), and
-    for k > 0 the trailing tiles, each taking panel k - 1's update."""
-    col = tiles - k + 1
-    if k == 0:
-        return col
-    return col + sum(tiles - j + 1 for j in range(k + 1, tiles))
+def one_block_smem(tiles: int, itemsize: int) -> int:
+    """Shared memory of the one-block path: the P (P + 1) / 2 lower tiles,
+    b^T's P tiles and the current diagonal tile's transpose, P x 32
+    reciprocals and 4 x 32 values of the diagonal factorisation."""
+    return ((tiles * (tiles + 1) // 2 + tiles + 1) * TILE * STRIDE + (tiles + 4) * TILE) * itemsize
+
+
+def warp_smem(itemsize: int) -> int:
+    """Shared memory of one warp of the dataflow: 4 tiles and 5 x 32 values."""
+    return (4 * TILE * STRIDE + 5 * TILE) * itemsize
+
+
+def items(tiles: int) -> int:
+    """Work items of the dataflow, each a warp's: a diagonal tile d (with
+    (d, d - 1)), each tile (i, j) with i >= j + 2, and b^T's tiles."""
+    return tiles * (tiles + 1) // 2 + 1
 
 
 def plan(n: int, m: int, itemsize: int, sms: int = H100_SMS,
          smem_per_block: int = H100_SMEM_PER_BLOCK) -> Plan:
     """The kernel's launch for an (n, n) system with m right-hand sides of
-    ``itemsize``-byte floats. Raises ValueError for what it cannot take:
-    more than 32 right-hand sides, or an x (n m values) that does not fit
-    one block's shared memory for the back substitution."""
-    if n < 1 or not 1 <= m <= MAX_RHS or itemsize not in (4, 8):
-        raise ValueError(f"spd_solve: needs N >= 1, 1 <= m <= {MAX_RHS} right-hand sides and "
-                         f"float32 or float64, got N={n}, m={m}, {itemsize}-byte values")
+    ``itemsize``-byte floats. One block while every tile fits its shared
+    memory (N <= 256 in float32, N <= 160 in float64 on an H100); else the
+    tile dataflow, an item a warp over as many blocks as the card has SMs
+    (items beyond go round again), no more warps a block than fit its shared
+    memory. Raises ValueError for what it cannot take: more than 32
+    right-hand sides, or N above 65536."""
+    if not 1 <= n <= MAX_N or not 1 <= m <= MAX_RHS or itemsize not in (4, 8):
+        raise ValueError(f"spd_solve: needs 1 <= N <= {MAX_N}, 1 <= m <= {MAX_RHS} right-hand "
+                         f"sides and float32 or float64, got N={n}, m={m}, {itemsize}-byte values")
     tiles = -(-n // TILE)
-    padded = tiles * TILE
-    stride = 36 if itemsize == 4 else 34
-    factor_smem = WARPS * (3 * TILE * stride + TILE) * itemsize
-    solve_smem = (padded + WARPS * TILE) * m * itemsize
-    smem = max(factor_smem, solve_smem)
-    if smem > smem_per_block:
-        raise ValueError(f"spd_solve: N={n}, m={m} needs {smem} bytes of shared memory (x, "
-                         f"(32 ceil(N / 32) + {WARPS * TILE}) m values, held by one block for "
-                         f"the back substitution), more than the {smem_per_block} one block "
-                         f"can hold")
-    # a warp a tile of the busiest phase (phase 1), as far as the card goes
-    grid = 1 if tiles <= ONE_BLOCK_TILES else min(sms, -(-work_items(tiles, 1) // WARPS))
-    workspace = (padded + TILE) * padded + tiles * (TILE * TILE + TILE)
-    return Plan(grid, tiles, smem, workspace)
+    smem = one_block_smem(tiles, itemsize)
+    if smem <= smem_per_block:
+        return Plan(True, 1, ONE_BLOCK_WARPS, tiles, smem, 1, 1)
+    count = items(tiles)
+    grid = min(sms, count)
+    warps = min(MAX_WARPS, smem_per_block // warp_smem(itemsize), -(-count // grid))
+    lower = tiles * (tiles + 1) // 2
+    # the published tiles of L and y^T, the diagonal factors again (as rows),
+    # their reciprocal diagonals, x^T, and one L_ik^T x_i a lower tile
+    workspace = (lower + 2 * tiles) * TILE * TILE + tiles * TILE + (tiles + lower) * TILE * m
+    return Plan(False, grid, warps, tiles, warps * warp_smem(itemsize), workspace,
+                2 * (lower + tiles))
+
+
+def one_block_limit(itemsize: int, smem_per_block: int = H100_SMEM_PER_BLOCK) -> int:
+    """The largest N that the one-block path takes."""
+    tiles = 1
+    while one_block_smem(tiles + 1, itemsize) <= smem_per_block:
+        tiles += 1
+    return tiles * TILE
+
+
+def launch_args(p: Plan) -> tuple:
+    """The plan's arguments of the C entry, in its order (all fields but the
+    two buffer sizes)."""
+    return tuple(int(v) for k, v in p._asdict().items() if k not in ("workspace", "flags"))
 
 
 @functools.lru_cache(maxsize=None)
@@ -153,12 +180,12 @@ def spd_solve(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     a, b = a.contiguous(), b.contiguous()
     x = torch.empty_like(b)
     work = torch.empty(p.workspace, dtype=a.dtype, device=a.device)
-    sync = torch.empty(2, dtype=torch.int32, device=a.device)  # barrier count, bad-pivot flag
+    flags = torch.empty(p.flags, dtype=torch.int32, device=a.device)  # zeroed by the kernel
     lib = _build.library()
     with torch.cuda.device(a.device):  # the C entry launches on the current card
         err = lib.wc_spd_solve(a.data_ptr(), b.data_ptr(), x.data_ptr(), work.data_ptr(),
-                               sync.data_ptr(), n, b.shape[1], a.element_size(), p.grid, p.tiles,
-                               p.smem_bytes, torch.cuda.current_stream(a.device).cuda_stream)
+                               flags.data_ptr(), n, b.shape[1], a.element_size(), *launch_args(p),
+                               torch.cuda.current_stream(a.device).cuda_stream)
     _build.check(err, "wc_spd_solve")
     LAUNCHES += 1
     return x
