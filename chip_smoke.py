@@ -118,7 +118,43 @@ non-zero):
                 its early exit on the device) and linear_solver="cholesky"
                 (K4) in float32 and in float64, each on the room's first 8
                 sweeps, graph against eager, bit-equal, K4's launches
-                counted.
+                counted;
+  9. records -- (l) the port on the card against the JAX package's recorded
+                CPU runs in tests/torch_reference/ (written by
+                tests/torch_jax_reference.py; read here, never imported):
+                (k)'s graph run (shipped config, K2 bins) against room50_f32
+                and room50_f64, ATE within room50_f32's + 0.5 mm; the room in
+                float64 (pcg_xla, exact KNN) on the graph against room50_f64:
+                its position and quaternion gaps within 1e-5 over the sweeps
+                before room50_f64_ulp (the JAX package's float64 run with one
+                input moved by one ulp) first passes 1e-5 m, its first sweep
+                over 1e-5 m and its first sweep whose counts differ no
+                earlier than room50_f64_ulp's, and over the whole run its RMS
+                and largest position gaps and largest quaternion gap within
+                2 x room50_f64_ulp's + 1e-5; in float32 with the exact KNN
+                (K1) on the graph, its RMS and largest position gap to
+                room50_f64 within 2 x room50_f32's own + 5e-5 m and its ATE
+                within room50_f32's + 0.3 mm, and the float64 gate must
+                refuse this float32 run (each run prints the first sweep
+                whose position gap passes 1e-5 m);
+                then benchmarks/longrun.py's 300 s travel and fastrot regimes
+                at the shipped config on the graph against travel300_f32 and
+                fastrot300_f32: ATE and final
+                error within 1.25 x the record's + 1 mm; over the prefix
+                before the record's error first passes 0.1 m (travel
+                diverges in both packages, fastrot never passes it) the ATE
+                and largest error within 1.25 x the record's + 1 mm (the gap
+                to the record there is printed: float32 runs of travel part
+                from the second sweep); the rebase shift
+                within 1e-6 s of the record's every sweep and as many sweeps
+                with a shift, fix_geo equal to pack_geo_rows(fix) bit for bit
+                every 100 sweeps and at the end, one capture of the sweep
+                graph, the card's allocated and reserved bytes at the end
+                equal to theirs at sweep 100, the host's RSS grown by at most
+                64 MiB from sweep 100. Every run's sweep times must be the
+                record's; each prints its gaps, both ATEs, the LM iterations
+                and capped sweeps of both packages, the median ratio of pair
+                counts and the sweeps whose integer counts differ.
 host_costs, not run by main, times the host feeder (numpy against native)
 and the live viewer on the main sequence (see its docstring).
 The script imports nothing of JAX or of the JAX package. Its last three lines
@@ -201,6 +237,32 @@ MXU_EDGES = ((8201, 16384, 512), (1001, 512, 512), (3001, 4096, 128), (3001, 409
 
 # (k): the sweeps of the 50 s room under torch.profiler, [first, end)
 GRAPH_PROFILED = (60, 68)
+
+# (l): the JAX package's recorded runs (tests/torch_jax_reference.py writes
+# them on a CPU; this script only reads them), and the port's copy of what
+# they ran: bench.py's 50 s room and benchmarks/longrun.py's 300 s regimes
+REFERENCE_DIR = ("tests", "torch_reference")
+ROOM50 = dict(duration=50.0, points_per_scan=12800, room_half=5.0, seed=0)
+LONGRUN = dict(duration=300.0, points_per_scan=2000, seed=0)
+SOAKS = {"travel300_f32": dict(geometry="ramp", room_half=8.0, travel=1.5, door_spacing=10.0,
+                               **LONGRUN),
+         "fastrot300_f32": dict(room_half=5.0, rot_scale=3.0, **LONGRUN)}
+# packed columns that hold counts (LM iterations, new surfels, pairs sliding
+# and fixed, surfels and pairs dropped)
+COUNT_COLUMNS = (8, 11, 12, 13, 17, 18)
+# float64 against room50_f64: gaps <= F64_GAP (m, and quaternion units) over
+# the sweeps before room50_f64_ulp (its input moved by one ulp) first passes
+# F64_GAP; that sweep and its first sweep whose counts differ reached no
+# earlier; over the whole run gaps <= GAP_FACTOR x room50_f64_ulp's + F64_GAP.
+# float32: gap(port, room50_f64) <= GAP_FACTOR x room50_f32's + F32_GAP_SLACK
+GAP_FACTOR, F64_GAP, F32_GAP_SLACK = 2.0, 1e-5, 5e-5
+F32_ATE_SLACK = 3e-4    # m: exact-KNN float32 port against the JAX float32 record
+BINS_ATE_SLACK = 5e-4   # m: the shipped config (K2 bins) against the JAX float32 record
+SOAK_FACTOR, SOAK_SLACK = 1.25, 1e-3  # ATE and final error <= 1.25 x the record's + 1 mm
+SOAK_PREFIX_ERROR = 0.1  # m: a soak's prefix ends where the record's error first passes it
+SHIFT_TOL = 1e-6        # s: the rebase shift against the record's, every sweep
+RSS_GROWTH = 64 * 2**20  # bytes: the host's RSS from sweep 100 to the end of a soak
+LIFETIME_EVERY = 100    # sweeps between the soak's fix_geo checks
 
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12        # FMA counted as two operations
@@ -1563,14 +1625,15 @@ def _profiled(fn) -> dict:
                 memcpys=names["cudaMemcpyAsync"] + names["cudaMemcpy"], kernel_ms=kernel_ns / 1e6)
 
 
-def phase_graph(dev) -> None:
+def phase_graph(dev) -> tuple:
     """(k): bench.py's workload (the shipped config, a 50 s room at 12800
     points a scan, ~100 sweeps: the first runs with a full fixed window),
     through LidarOdometry (its sweep graph) and through the eager reference:
     bit-equal, ATE < 20 mm. Per sweep, for both, over sweeps PROFILED of the
     steady state (after fixed_window_duration + sweep_duration, as bench.py
     times): launch calls, syncs and memcpys, device kernel ms (torch.profiler);
-    wall median and p90 over the other steady sweeps; idle share."""
+    wall median and p90 over the other steady sweeps; idle share. Returns
+    the graph run's frontend, the events and the sequence."""
     import numpy as np
     import torch
 
@@ -1582,7 +1645,7 @@ def phase_graph(dev) -> None:
 
     cfg = WildcatConfig()
     t0 = time.perf_counter()
-    seq = SyntheticSequence(duration=50.0, points_per_scan=12800, room_half=5.0, seed=0)
+    seq = SyntheticSequence(**ROOM50)
     events = list(cli.synthetic_events(seq))
     print(f"(k) 50 s room: sequence generated in {time.perf_counter() - t0:.1f} s", flush=True)
     first_steady = int((cfg.fixed_window_duration + cfg.sweep_duration) / cfg.sweep_duration)
@@ -1650,6 +1713,333 @@ def phase_graph(dev) -> None:
         k4_ok = counts["spd"] >= max(1, its if kw["linear_solver"] == "cholesky" else 0)
         if not (same and lo.sweep_id == 8 and k4_ok):
             raise AssertionError(f"(k) the {label} graph run left its eager run or missed K4")
+    return runs["graph"], events, seq
+
+
+def load_record(name: str) -> dict:
+    """One recorded JAX run: {"t" (n,), "packed" (n, 22), "meta"}."""
+    import os
+
+    import numpy as np
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), *REFERENCE_DIR, f"{name}.npz")
+    with np.load(path, allow_pickle=False) as d:
+        return dict(t=d["t"], packed=d["packed"], meta=json.loads(str(d["meta"])))
+
+
+def packed_rows(trajectory, stats) -> tuple:
+    """(t (n,), packed (n, 22)): a frontend's run as the records hold it (the
+    pose, then PACKED_STATS), from either package's trajectory and stats."""
+    import numpy as np
+
+    t = np.asarray([e[0] for e in trajectory], np.float64)
+    rows = [np.concatenate([np.asarray(p, np.float64), np.asarray(q, np.float64)]
+                           + [np.atleast_1d(np.asarray(st[k], np.float64)) for k in PACKED_STATS])
+            for (_, p, q), st in zip(trajectory, stats)]
+    return t, np.stack(rows) if rows else np.zeros((0, 22))
+
+
+def errors(t, pos, seq) -> dict:
+    """ATE (RMS, unaligned), largest and final position error (m), and the
+    error a sweep."""
+    import numpy as np
+
+    err = np.linalg.norm(pos - seq.gt_pose(np.asarray(t))[0], axis=1)
+    return dict(ate=float(np.sqrt(np.mean(err ** 2))), max=float(err.max()), final=float(err[-1]),
+                each=err)
+
+
+def _gaps(a, b) -> dict:
+    """Position gaps (RMS and largest, m), the largest quaternion gap (up to
+    sign), the first sweep whose position gap passes F64_GAP and the sweeps
+    whose counts differ of two packed runs with the same sweeps; with the
+    gaps a sweep (dp, dq)."""
+    import numpy as np
+
+    dp = np.linalg.norm(a[:, 0:3] - b[:, 0:3], axis=1)
+    dq = np.minimum(np.abs(a[:, 3:7] - b[:, 3:7]).max(1), np.abs(a[:, 3:7] + b[:, 3:7]).max(1))
+    over = np.flatnonzero(dp > F64_GAP)
+    cols = list(COUNT_COLUMNS)
+    differ = [int(i) for i in np.flatnonzero(np.any(a[:, cols] != b[:, cols], axis=1))]
+    return dict(rms=float(np.sqrt(np.mean(dp ** 2))), max=float(dp.max()), quat=float(dq.max()),
+                first_over=int(over[0]) if len(over) else None, differ=differ, dp=dp, dq=dq)
+
+
+def _f64_gate(g: dict, u: dict) -> list:
+    """The float64 gate: the failures of a run's gaps ``g`` to room50_f64,
+    held to room50_f64_ulp's ``u`` (see F64_GAP). Over the sweeps before
+    ``u`` first passes F64_GAP both gaps stay within it; the run's first
+    sweep over it and its first sweep whose counts differ come no earlier
+    than ``u``'s; over the whole run each gap is within GAP_FACTOR x ``u``'s
+    + F64_GAP."""
+    import numpy as np
+
+    n = len(u["dp"])
+
+    def first(x):
+        return n if x is None else x
+
+    def first_differ(x):
+        return x["differ"][0] if x["differ"] else n
+
+    fails = []
+    k = first(u["first_over"])
+    pre = dict(position=float(g["dp"][:k].max(initial=0.0)), quat=float(g["dq"][:k].max(initial=0.0)))
+    for name, v in pre.items():
+        if not v <= F64_GAP:
+            fails.append(f"largest {name} gap over sweeps 0-{k - 1} {v:.3e} > {F64_GAP:g}")
+    if first(g["first_over"]) < k:
+        fails.append(f"first sweep over {F64_GAP:g} m {g['first_over']} before "
+                     f"room50_f64_ulp's {u['first_over']}")
+    if first_differ(g) < first_differ(u):
+        fails.append(f"first sweep whose counts differ {first_differ(g)} before "
+                     f"room50_f64_ulp's {first_differ(u)}")
+    for key in ("rms", "max", "quat"):
+        if not g[key] <= GAP_FACTOR * u[key] + F64_GAP:
+            fails.append(f"{key} gap {g[key]:.3e} over {GAP_FACTOR:g} x room50_f64_ulp's "
+                         f"{u[key]:.3e} + {F64_GAP:g}")
+    return fails
+
+
+def _iterations_text(packed, cap: int) -> str:
+    import numpy as np
+
+    its = packed[:, 8]
+    return (f"min {its.min():.0f} median {np.median(its):.0f} max {its.max():.0f}, capped "
+            f"{[int(i) for i in np.flatnonzero(its >= cap)]}")
+
+
+def _hold(label: str, lo, seq, records: dict) -> dict:
+    """The port's run ``lo`` against each of ``records`` (name -> record):
+    the sweep times must be the record's; prints the gaps, both ATEs, the LM
+    iterations of both, the median ratio of pair counts and the sweeps
+    whose counts differ. Returns the port's errors and, per record, its
+    gaps and errors."""
+    import numpy as np
+
+    t, packed = packed_rows(lo.trajectory, lo.stats)
+    cap = lo.cfg.inner_iter_num_max
+    mine = errors(t, packed[:, 0:3], seq)
+    out = dict(mine, packed=packed, records={})
+    print(f"(l) {label}: {len(t)} sweeps, ATE {mine['ate'] * 1e3:.4f} mm unaligned, largest "
+          f"error {mine['max'] * 1e3:.4f} mm, final {mine['final'] * 1e3:.4f} mm; LM iterations "
+          f"{_iterations_text(packed, cap)}", flush=True)
+    for name, rec in records.items():
+        if not np.array_equal(t, rec["t"]):
+            raise AssertionError(f"(l) {label}: the sweep times are not {name}'s "
+                                 f"({len(t)} sweeps against {len(rec['t'])})")
+        theirs = errors(rec["t"], rec["packed"][:, 0:3], seq)
+        gap = _gaps(packed, rec["packed"])
+        pairs = packed[:, 12] + packed[:, 13]
+        pairs_ref = rec["packed"][:, 12] + rec["packed"][:, 13]
+        ratio = float(np.median(pairs / np.maximum(pairs_ref, 1.0)))
+        differ = gap["differ"]
+        out["records"][name] = dict(gap, **{f"ref_{k}": v for k, v in theirs.items()})
+        print(f"(l) {label} against {name}: position gap RMS {gap['rms']:.3e} m, largest "
+              f"{gap['max']:.3e} m, first over {F64_GAP:g} m at sweep {gap['first_over']}; "
+              f"quaternion gap largest {gap['quat']:.3e}; ATE port "
+              f"{mine['ate'] * 1e3:.4f} mm, JAX {theirs['ate'] * 1e3:.4f} mm (final error "
+              f"{theirs['final'] * 1e3:.4f} mm, largest {theirs['max'] * 1e3:.4f} mm); JAX LM "
+              f"iterations {_iterations_text(rec['packed'], cap)}; median pair-count ratio "
+              f"port/JAX {ratio:.6f}; sweeps whose counts differ ({len(differ)}): "
+              f"{differ[:20]}{' ...' if len(differ) > 20 else ''}", flush=True)
+    return out
+
+
+def _footprint(dev) -> dict:
+    """The card's allocated and reserved bytes and the host's resident bytes."""
+    import os
+
+    import torch
+
+    torch.cuda.synchronize(dev)
+    with open("/proc/self/statm") as f:
+        rss = int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+    return dict(allocated=torch.cuda.memory_allocated(dev),
+                reserved=torch.cuda.memory_reserved(dev), rss=rss)
+
+
+def _fix_geo_exact(lo) -> bool:
+    """The fixed window's cached geometry (refreshed only for inserted rows)
+    equals ``pack_geo_rows`` of the window, bit for bit."""
+    import torch
+
+    from wildcat_slam_tpu_torch.odometry import factors
+
+    torch.cuda.synchronize(lo.device)
+    st = lo.state
+    fresh = factors.pack_geo_rows(st.fix)
+    bits = torch.int64 if fresh.dtype == torch.float64 else torch.int32
+    same = torch.equal(st.fix_geo.view(bits), fresh.view(bits))
+    if not same:
+        rows = (st.fix_geo.view(bits) != fresh.view(bits)).any(1)
+        valid = st.fix.valid
+        print(f"(l) fix_geo differs from pack_geo_rows(fix) in {int(rows.sum())} rows "
+              f"({int((rows & valid).sum())} valid), largest gap on valid rows "
+              f"{float((st.fix_geo - fresh)[valid].abs().max()):.3e}", flush=True)
+    return same
+
+
+def _soak(dev, name: str, rec: dict) -> None:
+    """A 300 s soak on the sweep graph with its lifetime checks, against the
+    JAX record ``name``."""
+    import numpy as np
+
+    from wildcat_slam_tpu_torch import cli
+    from wildcat_slam_tpu_torch.config import WildcatConfig
+    from wildcat_slam_tpu_torch.io.synthetic import SyntheticSequence
+    from wildcat_slam_tpu_torch.odometry import graph as graph_mod
+    from wildcat_slam_tpu_torch.odometry.pipeline import LidarOdometry
+
+    seq_kw = SOAKS[name]
+    if rec["meta"]["sequence"] != seq_kw or rec["meta"]["config_kw"] != {}:
+        raise AssertionError(f"(l) {name}: the record ran {rec['meta']['sequence']} "
+                             f"{rec['meta']['config_kw']}, not {seq_kw} at the shipped config")
+    t0 = time.perf_counter()
+    seq = SyntheticSequence(**seq_kw)
+    events = list(cli.synthetic_events(seq))
+    t_gen = time.perf_counter() - t0
+    lo = LidarOdometry(WildcatConfig(), device=dev)
+    real = graph_mod.SweepGraph
+    captures = []
+
+    class CountedGraph(real):
+        def __init__(self, *args, **kw):
+            captures.append(lo.sweep_id)
+            super().__init__(*args, **kw)
+
+    checks, mark = [], None
+    graph_mod.SweepGraph = CountedGraph
+    t0 = time.perf_counter()
+    try:
+        for ev in events:
+            n = lo.sweep_id
+            cli.feed_events(lo, [ev])
+            if lo.sweep_id != n and lo.sweep_id % LIFETIME_EVERY == 0:
+                checks.append((lo.sweep_id, _fix_geo_exact(lo)))
+                if lo.sweep_id == LIFETIME_EVERY:
+                    lo.trajectory  # the host copies so far
+                    mark = _footprint(dev)
+        lo.trajectory
+        checks.append((lo.sweep_id, _fix_geo_exact(lo)))
+        end = _footprint(dev)
+    finally:
+        graph_mod.SweepGraph = real
+    wall = time.perf_counter() - t0
+    res = _hold(f"{name} soak (graph)", lo, seq, {name: rec})
+    gap = res["records"][name]
+    shift, shift_ref = res["packed"][:, 7], rec["packed"][:, 7]
+    shift_gap = float(np.abs(shift - shift_ref).max())
+    rebases, rebases_ref = int(np.count_nonzero(shift)), int(np.count_nonzero(shift_ref))
+    ms = np.asarray(lo.sweep_seconds[1:]) * 1e3
+    fix_ok = all(ok for _, ok in checks)
+    growth = end["rss"] - mark["rss"]
+    # the prefix before the record's error first passes SOAK_PREFIX_ERROR,
+    # where a diverging record still bounds the port's errors
+    over = np.flatnonzero(gap["ref_each"] > SOAK_PREFIX_ERROR)
+    n = int(over[0]) if len(over) else len(rec["t"])
+    mine, theirs = res["each"][:n], gap["ref_each"][:n]
+    pre = dict(ate=float(np.sqrt(np.mean(mine ** 2))), max=float(mine.max()),
+               ref_ate=float(np.sqrt(np.mean(theirs ** 2))), ref_max=float(theirs.max()),
+               gap=float(np.sqrt(np.mean(gap["dp"][:n] ** 2))), gap_max=float(gap["dp"][:n].max()))
+    flat = end["allocated"] == mark["allocated"] and end["reserved"] == mark["reserved"]
+    print(f"(l) {name} soak: sequence generated in {t_gen:.1f} s, {lo.sweep_id} sweeps in "
+          f"{wall:.1f} s; per sweep on the graph after the first: median {np.median(ms):.2f} ms, "
+          f"p90 {np.percentile(ms, 90):.2f} ms; ATE {res['ate'] * 1e3:.4f} mm (JAX "
+          f"{gap['ref_ate'] * 1e3:.4f}), largest error {res['max'] * 1e3:.4f} mm (JAX "
+          f"{gap['ref_max'] * 1e3:.4f}), final error {res['final'] * 1e3:.4f} mm (JAX "
+          f"{gap['ref_final'] * 1e3:.4f}); shift gap to the record {shift_gap:.3e} s; sweeps "
+          f"with a rebase shift {rebases} (JAX {rebases_ref}); fix_geo == pack_geo_rows(fix) bit "
+          f"for bit at sweeps {[k for k, _ in checks]}: {[ok for _, ok in checks]}; captures "
+          f"{len(captures)} (before sweeps {captures}); card memory at sweep {LIFETIME_EVERY} "
+          f"allocated {mark['allocated']} B reserved {mark['reserved']} B, at the end "
+          f"{end['allocated']} B / {end['reserved']} B; host RSS {mark['rss'] / 2**20:.1f} -> "
+          f"{end['rss'] / 2**20:.1f} MiB (+{growth / 2**20:.1f})", flush=True)
+    print(f"(l) {name} soak, prefix before the record's error first passes "
+          f"{SOAK_PREFIX_ERROR:g} m: sweeps 0-{n - 1} (t <= {rec['t'][n - 1]:.3f} s); ATE "
+          f"{pre['ate'] * 1e3:.4f} mm (JAX {pre['ref_ate'] * 1e3:.4f}), largest error "
+          f"{pre['max'] * 1e3:.4f} mm (JAX {pre['ref_max'] * 1e3:.4f}); position gap to the "
+          f"record RMS {pre['gap'] * 1e3:.4f} mm, largest {pre['gap_max'] * 1e3:.4f} mm",
+          flush=True)
+    bounds = dict(
+        ate=res["ate"] <= SOAK_FACTOR * gap["ref_ate"] + SOAK_SLACK,
+        final=res["final"] <= SOAK_FACTOR * gap["ref_final"] + SOAK_SLACK,
+        prefix_ate=pre["ate"] <= SOAK_FACTOR * pre["ref_ate"] + SOAK_SLACK,
+        prefix_max=pre["max"] <= SOAK_FACTOR * pre["ref_max"] + SOAK_SLACK,
+        shift=shift_gap <= SHIFT_TOL, rebases=rebases == rebases_ref, fix_geo=fix_ok,
+        one_capture=len(captures) == 1, memory_flat=flat, rss=growth <= RSS_GROWTH)
+    if not all(bounds.values()):
+        raise AssertionError(f"(l) {name} soak failed: {bounds}")
+
+
+def phase_records(dev, room_lo, room_events, room_seq) -> None:
+    """(l): the port on the card against the JAX package's recorded runs
+    (tests/torch_reference/): (k)'s graph run of the 50 s room at the shipped
+    config, the room in float64 (pcg_xla, exact KNN) and in float32 with the
+    exact KNN, both on the graph, then the two 300 s soaks with their
+    lifetime checks. Every bound is checked; a failed one raises."""
+    from wildcat_slam_tpu_torch import cli
+    from wildcat_slam_tpu_torch.config import WildcatConfig
+    from wildcat_slam_tpu_torch.odometry.pipeline import LidarOdometry
+
+    f64 = dict(dtype="float64", linear_solver="pcg_xla", match_knn_approx=False)
+    recs = {n: load_record(n) for n in ("room50_f64", "room50_f64_ulp", "room50_f32")}
+    for n, kw in (("room50_f64", f64), ("room50_f64_ulp", f64),
+                  ("room50_f32", dict(match_knn_approx=False))):
+        if recs[n]["meta"]["sequence"] != ROOM50 or recs[n]["meta"]["config_kw"] != kw:
+            raise AssertionError(f"(l) {n} is not the run this phase expects: {recs[n]['meta']}")
+    failed = []
+    own = {}
+    for n in ("room50_f64_ulp", "room50_f32"):
+        own[n] = g = _gaps(recs[n]["packed"], recs["room50_f64"]["packed"])
+        print(f"(l) the records: {n} against room50_f64: position gap RMS {g['rms']:.3e} m, "
+              f"largest {g['max']:.3e} m, first over {F64_GAP:g} m at sweep {g['first_over']}; "
+              f"quaternion {g['quat']:.3e}; first sweep whose counts differ "
+              f"{g['differ'][0] if g['differ'] else None}", flush=True)
+    ref, ulp = own["room50_f32"], own["room50_f64_ulp"]
+    print(f"(l) the float64 gate on room50_f32 (the JAX package's float32 run): "
+          f"{_f64_gate(ref, ulp) or 'passes'}", flush=True)
+    # the shipped config (K2 bins): (k)'s graph run
+    res = _hold("shipped config, K2 bins (k)'s graph run", room_lo, room_seq,
+                {n: recs[n] for n in ("room50_f32", "room50_f64")})
+    if not res["ate"] <= res["records"]["room50_f32"]["ref_ate"] + BINS_ATE_SLACK:
+        failed.append("shipped config: ATE over room50_f32's + 0.5 mm")
+    for label, kw, names in (
+            ("float64, pcg_xla, exact KNN (graph)", f64, ("room50_f64",)),
+            ("float32, exact KNN, K1 (graph)", dict(match_knn_approx=False),
+             ("room50_f32", "room50_f64"))):
+        lo = LidarOdometry(WildcatConfig(**kw), device=dev)
+        t0 = time.perf_counter()
+        cli.feed_events(lo, room_events)
+        lo.trajectory
+        print(f"(l) {label}: {lo.sweep_id} sweeps in {time.perf_counter() - t0:.1f} s", flush=True)
+        res = _hold(label, lo, room_seq, {n: recs[n] for n in names})
+        g = res["records"]
+        gate = _f64_gate(g["room50_f64"], ulp)
+        print(f"(l) {label}: the float64 gate against room50_f64 (room50_f64_ulp first over "
+              f"{F64_GAP:g} m at sweep {ulp['first_over']}, its counts first differ at "
+              f"{ulp['differ'][:1]}; this run's largest gaps before it: position "
+              f"{g['room50_f64']['dp'][:ulp['first_over']].max(initial=0.0):.3e} m, quaternion "
+              f"{g['room50_f64']['dq'][:ulp['first_over']].max(initial=0.0):.3e}; counts first "
+              f"differ at {g['room50_f64']['differ'][:1]}): {gate or 'passes'}", flush=True)
+        if "room50_f32" in names:
+            if not g["room50_f64"]["rms"] <= GAP_FACTOR * ref["rms"] + F32_GAP_SLACK:
+                failed.append(f"{label}: RMS gap to room50_f64 over 2 x JAX float32's + 5e-5 m")
+            if not g["room50_f64"]["max"] <= GAP_FACTOR * ref["max"] + F32_GAP_SLACK:
+                failed.append(f"{label}: largest gap to room50_f64 over 2 x JAX float32's + 5e-5 m")
+            if not res["ate"] <= g["room50_f32"]["ref_ate"] + F32_ATE_SLACK:
+                failed.append(f"{label}: ATE over room50_f32's + 0.3 mm")
+            if not gate:
+                failed.append(f"{label}: the float64 gate passes a float32 run")
+        else:
+            failed += [f"{label}: {f}" for f in gate]
+    for name in SOAKS:
+        try:
+            _soak(dev, name, load_record(name))
+        except AssertionError as e:
+            failed.append(str(e))
+    if failed:
+        raise AssertionError(f"(l) failed: {failed}")
 
 
 def phase_outputs(dev) -> None:
@@ -2052,13 +2442,16 @@ def main() -> int:
     t_regimes = time.perf_counter()
     phase_regimes(dev)
     t_graph = time.perf_counter()
-    phase_graph(dev)
+    room = phase_graph(dev)
+    t_records = time.perf_counter()
+    phase_records(dev, *room)
     t_end = time.perf_counter()
     print(f"seconds: build, kernels, main, its eager run and replay {t_paths - t0:.1f}, paths "
           f"(a)-(d) {t_batch - t_paths:.1f}, (e) {t_chained - t_batch:.1f}, (f) "
           f"{t_outputs - t_chained:.1f}, (g) {t_native - t_outputs:.1f}, (h) "
           f"{t_viewer - t_native:.1f}, (i) {t_regimes - t_viewer:.1f}, (j) "
-          f"{t_graph - t_regimes:.1f}, (k) {t_end - t_graph:.1f}", flush=True)
+          f"{t_graph - t_regimes:.1f}, (k) {t_records - t_graph:.1f}, (l) "
+          f"{t_end - t_records:.1f}", flush=True)
     bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "wildcat_slam_tpu"))
     if bad:
         raise AssertionError(f"the port imported JAX or the JAX package: {bad}")

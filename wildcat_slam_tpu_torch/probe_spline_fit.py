@@ -2,7 +2,7 @@
 ``bench.py``'s workload (the shipped config, a 50 s room at 12800 points a
 scan, ~100 sweeps) with the fit computed three ways, and in float64.
 
-    python -m wildcat_slam_tpu_torch.probe_spline_fit
+    python -m wildcat_slam_tpu_torch.probe_spline_fit [--checkpoints DIR]
 
 - ``kernel``: the port as it is, (N^T N) Q = N^T p solved by kernel K4
   (``ops/spd.spd_solve``), on the sweep graph;
@@ -18,13 +18,21 @@ For each it prints the ATE (unaligned, against the sequence's ground
 truth), the LM iterations a sweep (min, median, max), the sweeps that ran
 to the ``inner_iter_num_max`` cap (with each one's wall ms, costs before and
 after its solve and final LM damping), the wall ms a sweep, and the
-iterations of the sweeps around the first capped one in every variant. Needs a CUDA card; it exits
-non-zero without one.
+iterations of the sweeps around the first capped one in every variant.
+With ``--checkpoints DIR`` it then runs ``kernel`` once more and writes, for
+each sweep k that ``kernel`` ran to the cap, the checkpoint taken after k
+sweeps (``DIR/after{k}.npz``) and the number of the sequence's events fed
+by then (``DIR/marks.json``), from which
+``tests/torch_jax_reference.py --lm-cap --resume-from DIR`` runs sweep k in
+both packages on a CPU. Needs a CUDA card; it exits non-zero without one.
 """
 
 from __future__ import annotations
 
+import argparse
 import functools
+import json
+import os
 import sys
 import time
 
@@ -34,6 +42,7 @@ import torch
 from wildcat_slam_tpu_torch import cli
 from wildcat_slam_tpu_torch.config import WildcatConfig
 from wildcat_slam_tpu_torch.io.synthetic import SyntheticSequence, ate_rmse
+from wildcat_slam_tpu_torch.odometry import checkpoint
 from wildcat_slam_tpu_torch.odometry import corrections as cor_mod
 from wildcat_slam_tpu_torch.odometry.pipeline import LidarOdometry
 from wildcat_slam_tpu_torch.ops import spd
@@ -80,7 +89,11 @@ VARIANTS = {"kernel": (KERNEL, True, {}), "operator": (fit_operator, True, {}),
             "float64": (KERNEL, True, dict(dtype="float64", linear_solver="pcg_xla"))}
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--checkpoints", default=None,
+                    help="write the checkpoint before each of kernel's capped sweeps here")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("probe_spline_fit: needs a CUDA card", file=sys.stderr)
         return 1
@@ -119,6 +132,17 @@ def main() -> int:
         a, b = max(0, c - 3), c + 4
         print(f"LM iterations of sweeps {a}-{b - 1}: " + "; ".join(
             f"{name} {v[a:b].tolist()}" for name, v in iters.items()), flush=True)
+    if args.checkpoints:
+        os.makedirs(args.checkpoints, exist_ok=True)
+        lo = LidarOdometry(WildcatConfig(), device=dev)
+        given, marks = 0, {}
+        for k in np.flatnonzero(iters["kernel"] >= cap).tolist():
+            given += cli.feed_events(lo, events[given:], until_sweep=k)
+            checkpoint.save(os.path.join(args.checkpoints, f"after{k}.npz"), lo)
+            marks[k] = given
+            print(f"kernel: checkpoint after {k} sweeps ({given} events)", flush=True)
+        with open(os.path.join(args.checkpoints, "marks.json"), "w") as f:
+            json.dump(marks, f)
     return 0
 
 
