@@ -32,17 +32,22 @@ non-zero):
                 (the tile dataflow), and N=700 (a ragged last tile on the
                 dataflow), held to its backward-error and forward-gap
                 bounds, NaN on indefinite systems, and a graph replay equal
-                to its eager call;
+                to its eager call; K5 (imu_factor) and K6 (surfel_factor)
+                in float32 and float64 on random factors at the main path's
+                sizes (S=96, M=16384 of which 8192 binary, Mi=1536), with
+                40 live states, every factor invalid, a ragged M and Mi, and
+                S=8 (FACTOR_RTOL; H and the IMU bands bit-symmetric);
   4. main    -- LidarOdometry(WildcatConfig(), device="cuda") on an 8 s
                 synthetic sequence at 64k points per sweep: its first sweep
                 eager, the rest on its sweep graph (odometry/graph.py); ATE <
-                0.02 m, K1, K2 vpu, K3 and K4 launched by that run (replays
+                0.02 m, K1, K2 vpu, K3-K6 launched by that run (replays
                 count the launches they hold), what the graph cost to capture;
                 then (k) the eager reference, process_sweep called directly
                 on each feed _prepare_feed builds: the graph run must equal it
                 bit for bit (trajectory, the 22 packed outputs); it records
                 the inputs of the first K1 call and of each K2, K3 and K4 call
-                of its last sweep;
+                of its last sweep, and of its first K5 and K6 normal
+                equations;
   5. replay  -- the mxu path, knn_topk(mode="mxu") on the recorded K2 inputs,
                 then each kernel against its plain version on the recorded
                 main-path inputs, with CUDA-event timings of both and of one
@@ -51,7 +56,10 @@ non-zero):
                 on the spline fit's system and on the first damped LM system
                 (from K1's inputs) in float32 and float64, the library's
                 cholesky_ex + cholesky_solve also timed back to back
-                (library_device_ms, beside K4's device_ms);
+                (library_device_ms, beside K4's device_ms); K5 and K6 in
+                both modes (the normal mode by graph replays too; K6's
+                yardstick the cross Gram b1^T b2 with the one-hot einsums it
+                replaces, K5's null);
                 then K1's S-scaling table: K1 on the random S=96/192/256
                 systems, its time, iterations run, bound and share of it;
                 then each wrapper's cost (wrapper_costs): device time, time
@@ -174,7 +182,12 @@ in another order than cuSOLVER: its backward error |a x - b| / (|a| |x| +
 multiple of eps), and its forward gap max|x - x_plain| / max|x_plain| at
 most 100 kappa_2(a) eps (sound solves read a few kappa eps; one tile's
 update left out reads ~100 times the bound at N=1152 while its backward
-error stays inside 10 N eps), its solution finite, two runs bit-equal. The
+error stays inside 10 N eps), its solution finite, two runs bit-equal. K5
+and K6 sum in other orders than their plain versions' einsums and
+products: each output within 1e-10 (float64) or 1e-4 (float32) of the plain
+version's largest entry on the same inputs (FACTOR_RTOL; in float32 the
+plain version in float64 is printed beside it, not gated), H and the IMU
+bands bit-symmetric, two runs bit-equal. The
 sweep graph runs the eager path's kernels in the eager path's order, so every
 graph run must equal its eager run bit for bit. K1 sums its
 matvec in another order than the plain version's cuBLAS gemv and CG
@@ -489,7 +502,7 @@ def _cloud(rng, n: int, spread: float = 5.0):
 def _counted(label: str, fn):
     """Run one path with every launch count set to 0 before it; returns fn's
     result and the counts read after it. The kernels of the main path (K1,
-    K2 vpu, K3, K4) must launch. A sweep graph's replays count the launches it
+    K2 vpu, K3, K4, K5, K6) must launch. A sweep graph's replays count the launches it
     holds, once a replay, and its capture counts none (``graph.launches``)."""
     import torch
 
@@ -499,7 +512,8 @@ def _counted(label: str, fn):
     out = fn()
     torch.cuda.synchronize()
     counts = graph.launches()
-    launches = {k: counts[k] for k in ("pcg", "knn", "self_match", "spd")}
+    launches = {k: counts[k] for k in ("pcg", "knn", "self_match", "spd", "imu_factor",
+                                       "surfel_factor")}
     if not all(launches.values()):
         raise AssertionError(f"{label}: a kernel of the path did not launch: {launches}")
     return out, launches
@@ -934,6 +948,322 @@ def k4_times(a, b, err: float) -> dict:
                 library_device_ms=_device_ms(library_unchecked))
 
 
+# K5 and K6 against their plain versions on the same inputs, per output, as
+# a share of the plain output's largest entry: max |kernel - plain| at most
+# 1e-10 in float64 and 1e-4 in float32 (the sums run in another order than
+# the plain version's einsums and products, and the kernels' sin, cos and
+# atan are CUDA's). In float32 the plain version in float64 on the same
+# inputs is printed beside it, as a diagnostic only: the IMU residual divides
+# a sum of metre-scale positions by dt^2, so both float32 versions sit ~1e-2
+# of the residuals' scale from it on the main path's inputs
+FACTOR_RTOL = {"float32": 1e-4, "float64": 1e-10}
+
+
+def factor_problem(dev, dtype, s_cap: int = 96, count: int | None = None, m: int = 16384,
+                   nb: int = 8192, mi: int = 1536, seed: int = 0, valid_share: float = 0.9):
+    """Random surfel factors (the first nb binary) and IMU factors on S
+    sample states (``count`` live), bracketed as the pipeline brackets them
+    (``factors.sample_bracket``: ir = il + 1; a unary factor's side 1 at
+    (0, 0) with f = 0; an IMU factor's six indices within three blocks of
+    their minimum), made from ``seed`` with numpy in ``dtype`` on the card.
+    Returns (sfac, ifac, cor, grav, fm, nb) with fm the gauge mask (the live
+    states, the first state's position frozen)."""
+    import numpy as np
+    import torch
+
+    from wildcat_slam_tpu_torch.odometry.factors import ImuFactors, SurfelFactors
+
+    rng = np.random.default_rng(seed)
+    count = count or s_cap
+
+    def t(x, dt=dtype):
+        return torch.as_tensor(np.asarray(x), device=dev).to(dt)
+
+    def unit(n, d):
+        x = rng.normal(size=(n, d))
+        return x / np.linalg.norm(x, axis=1, keepdims=True)
+
+    unary = np.arange(m) >= nb
+    i1l = np.where(unary, 0, rng.integers(0, count - 1, m))
+    i2l = rng.integers(0, count - 1, m)
+    sfac = SurfelFactors(
+        valid=t(rng.uniform(size=m) < valid_share, torch.bool), w=t(rng.uniform(5.0, 60.0, m)),
+        n=t(unit(m, 3)), opt1=t(~unary, torch.bool), v1=t(rng.normal(size=(m, 3)) * 4.0),
+        p1=t(rng.normal(size=(m, 3))), i1l=t(i1l, torch.int64),
+        i1r=t(np.where(unary, 0, i1l + 1), torch.int64),
+        f1=t(np.where(unary, 0.0, rng.uniform(size=m))), v2=t(rng.normal(size=(m, 3)) * 4.0),
+        p2=t(rng.normal(size=(m, 3))), i2l=t(i2l, torch.int64), i2r=t(i2l + 1, torch.int64),
+        f2=t(rng.uniform(size=m)))
+    base = rng.integers(0, max(count - 2, 1), mi)
+    il = base[:, None] + (rng.uniform(size=(mi, 3)) < np.array([0.0, 0.3, 0.6]))
+    il = np.minimum(il, count - 2)
+    acc = np.array([0.0, 0.0, 9.81]) + rng.normal(scale=0.3, size=(mi, 3))
+    ifac = ImuFactors(
+        valid=t(rng.uniform(size=mi) < valid_share, torch.bool), q1=t(unit(mi, 4)),
+        q2=t(unit(mi, 4)), a1=t(acc), g1=t(rng.normal(scale=0.5, size=(mi, 3))),
+        g2=t(rng.normal(scale=0.5, size=(mi, 3))), p1=t(rng.normal(size=(mi, 3))),
+        p2=t(rng.normal(size=(mi, 3))), p3=t(rng.normal(size=(mi, 3))),
+        il=t(il, torch.int64), ir=t(il + 1, torch.int64), f=t(rng.uniform(size=(mi, 3))))
+    cor = t(rng.normal(scale=1e-3, size=(s_cap, 12)))
+    grav = t(np.array([0.0, 0.0, -9.81]))
+    par = np.arange(12 * s_cap)
+    fm = t(((par // 12) < count) & ~((par >= 3) & (par < 6)))
+    return sfac, ifac, cor, grav, fm, nb
+
+
+def _gap(got, ref) -> float:
+    """max |got - ref| / max |ref| (NaN where they differ in finiteness)."""
+    import torch
+
+    if not torch.equal(torch.isfinite(got), torch.isfinite(ref)):
+        return float("nan")
+    fin = torch.isfinite(ref)
+    scale = float(torch.max(torch.abs(ref[fin]))) if bool(fin.any()) else 0.0
+    diff = float(torch.max(torch.abs(got[fin] - ref[fin]))) if bool(fin.any()) else 0.0
+    return diff / scale if scale > 0 else diff
+
+
+def _double(x):
+    """A factor struct, tensor or scalar in float64 (the reference's inputs)."""
+    import torch
+
+    if hasattr(x, "map"):
+        return x.map(_double)
+    return x.double() if isinstance(x, torch.Tensor) and x.is_floating_point() else x
+
+
+def _held(outputs: dict, dtype) -> tuple:
+    """Each output (kernel, plain, float64 reference or None) against the
+    gate of FACTOR_RTOL, the kernel to the plain version; the float64
+    reference's gaps are printed, not gated. Returns (text, ok, the largest
+    absolute difference to the plain version over the finite entries)."""
+    import torch
+
+    rtol, parts, ok = FACTOR_RTOL[str(dtype)[6:]], [], True
+    for name, (got, plain, ref) in outputs.items():
+        gap = _gap(got, plain)
+        ok &= gap <= rtol
+        parts.append(f"{name} {gap:.3e}" + ("" if ref is None else
+                     f" (to float64 {_gap(got.double(), ref):.3e}, plain's "
+                     f"{_gap(plain.double(), ref):.3e})"))
+    diffs = [torch.abs(got.double() - plain.double()) for got, plain, _ in outputs.values()]
+    return "max gap / scale " + ", ".join(parts) + f" (bound {rtol:.0e})", ok, max(
+        float(d[torch.isfinite(d)].max()) if bool(torch.isfinite(d).any()) else 0.0
+        for d in diffs)
+
+
+def check_k5(label: str, ifac, cor, weights, dt: float, grav) -> float:
+    """K5 (imu_factor) against its plain version (FACTOR_RTOL): the
+    residuals, the five block bands and g; band -d at r + d the transpose
+    of band +d at r bit for bit, two runs bit-equal. Returns the largest
+    absolute difference to the plain version."""
+    import torch
+
+    from wildcat_slam_tpu_torch.odometry import factors as fmod
+    from wildcat_slam_tpu_torch.odometry import solver
+    from wildcat_slam_tpu_torch.ops import imu_factor
+
+    s_cap = cor.shape[0]
+    r = imu_factor.residuals(ifac, cor, weights, dt, grav)
+    bands, g = imu_factor.normal_eqs(ifac, cor, weights, dt, grav)
+    bands2, g2 = imu_factor.normal_eqs(ifac, cor, weights, dt, grav)
+    torch.cuda.synchronize()
+    r_p = fmod.imu_residuals_plain(ifac, cor, weights, dt, grav, with_jac=False)[0]
+    bands_p, g_p = solver.imu_banded_normal_eqs_plain(ifac, cor, weights, dt, grav, s_cap)
+    refs = (None, None, None)
+    if cor.dtype == torch.float32:
+        args = tuple(map(_double, (ifac, cor, weights, dt, grav)))
+        refs = (fmod.imu_residuals_plain(*args, with_jac=False)[0],
+                *solver.imu_banded_normal_eqs_plain(*args, s_cap))
+    text, ok, worst = _held(dict(r=(r, r_p, refs[0]), bands=(bands, bands_p, refs[1]),
+                                 g=(g, g_p, refs[2])), cor.dtype)
+    same = torch.equal(bands, bands2) and torch.equal(g, g2)
+    sym = all(torch.equal(bands[2 + d, :s_cap - d], bands[2 - d, d:].transpose(1, 2))
+              for d in (1, 2)) and torch.equal(bands[2], bands[2].transpose(1, 2))
+    line = (f"K5 imu_factor {label}: Mi={ifac.valid.shape[0]} S={s_cap} {str(cor.dtype)[6:]}, "
+            f"{int(ifac.valid.sum())} valid; {text}; bands symmetric bit for bit {sym}; "
+            f"bitwise-repeatable={same}")
+    print(line, flush=True)
+    if not (ok and sym and same):
+        raise AssertionError("K5 left its plain version: " + line)
+    return worst
+
+
+def check_k6(label: str, sfac, cor, a2: float, imu_bands, gi, fm, nb: int) -> float:
+    """K6 (surfel_factor) against its plain version (FACTOR_RTOL): the
+    residuals, H and g, and H without the IMU factors' part (the surfel
+    factors' alone, at their own scale); H bit-exactly symmetric, two runs
+    bit-equal. Returns the largest absolute difference to the plain
+    version."""
+    import torch
+
+    from wildcat_slam_tpu_torch.odometry import factors as fmod
+    from wildcat_slam_tpu_torch.odometry import solver
+    from wildcat_slam_tpu_torch.ops import surfel_factor
+
+    s_cap = cor.shape[0]
+    zb, zg = torch.zeros_like(imu_bands), torch.zeros_like(gi)
+    r = surfel_factor.residuals(sfac, cor)
+    h, g = surfel_factor.normal_eqs(sfac, cor, a2, imu_bands, gi, fm, nb)
+    h2, g2 = surfel_factor.normal_eqs(sfac, cor, a2, imu_bands, gi, fm, nb)
+    hs, gs = surfel_factor.normal_eqs(sfac, cor, a2, zb, zg, fm, nb)
+    torch.cuda.synchronize()
+    r_p = fmod.surfel_residuals_plain(sfac, cor, with_jac=False)[0]
+    h_p, g_p = solver.surfel_normal_eqs_plain(sfac, cor, a2, imu_bands, gi, fm, s_cap, nb)
+    hs_p, gs_p = solver.surfel_normal_eqs_plain(sfac, cor, a2, zb, zg, fm, s_cap, nb)
+    refs = (None,) * 5
+    if cor.dtype == torch.float32:
+        sf, c, f = _double(sfac), cor.double(), fm.double()
+        refs = (fmod.surfel_residuals_plain(sf, c, with_jac=False)[0],
+                *solver.surfel_normal_eqs_plain(sf, c, a2, imu_bands.double(), gi.double(), f,
+                                                s_cap, nb),
+                *solver.surfel_normal_eqs_plain(sf, c, a2, zb.double(), zg.double(), f, s_cap,
+                                                nb))
+    text, ok, worst = _held(dict(r=(r, r_p, refs[0]), H=(h, h_p, refs[1]), g=(g, g_p, refs[2]),
+                                 H_surfel=(hs, hs_p, refs[3]), g_surfel=(gs, gs_p, refs[4])),
+                            cor.dtype)
+    same = torch.equal(h, h2) and torch.equal(g, g2)
+    sym = torch.equal(h, h.T) and torch.equal(hs, hs.T)
+    line = (f"K6 surfel_factor {label}: M={sfac.valid.shape[0]} nb={nb} S={s_cap} "
+            f"{str(cor.dtype)[6:]}, {int(sfac.valid.sum())} valid; {text}; H symmetric bit for "
+            f"bit {sym}; bitwise-repeatable={same}")
+    print(line, flush=True)
+    if not (ok and sym and same):
+        raise AssertionError("K6 left its plain version: " + line)
+    return worst
+
+
+def check_factor_kernels(label: str, dev, dtype, **kw) -> None:
+    """K5, then K6 on K5's plain bands, on a :func:`factor_problem`."""
+    from wildcat_slam_tpu_torch.odometry import solver
+
+    sfac, ifac, cor, grav, fm, nb = factor_problem(dev, dtype, **kw)
+    check_k5(label, ifac, cor, FACTOR_WEIGHTS, FACTOR_DT, grav)
+    bands, gi = solver.imu_banded_normal_eqs_plain(ifac, cor, FACTOR_WEIGHTS, FACTOR_DT, grav,
+                                                   cor.shape[0])
+    check_k6(label, sfac, cor, FACTOR_A2, bands, gi, fm, nb)
+
+
+# the shipped config's IMU weights, IMU period and Cauchy scale squared
+FACTOR_WEIGHTS = (3.0, 2.0, 40.0, 500.0)
+FACTOR_DT = 0.005
+FACTOR_A2 = 0.4 ** 2
+
+
+def _k5_bound(ifac, s_cap: int, itemsize: int) -> tuple:
+    """K5's bound (normal mode): the factors (29 values, valid, 6 int64
+    indices each) and cor read once, the bands and g written once; for each
+    valid factor (an invalid one's band is zero) the distinct entries of its
+    B^T B (36 x 37 / 2, B^T B being symmetric) and B^T r (36) over its 12
+    rows, as FMA at the f32 (or f64 tensor-core) peak. The band's structural
+    zeros are counted as work, so the least work is lower still."""
+    mi, valid = ifac.valid.shape[0], int(ifac.valid.sum())
+    moved = mi * (29 * itemsize + 1 + 48) + 12 * s_cap * itemsize + (5 * 144 + 12) * s_cap \
+        * itemsize
+    flops = 2.0 * valid * (36 * 37 // 2 + 36) * 12
+    return _bound(moved, fma=flops / (F32_FLOPS if itemsize == 4 else F64_FLOPS))
+
+
+def _k6_bound(sfac, nb: int, s_cap: int, itemsize: int) -> tuple:
+    """K6's bound (normal mode): the factors (18 values: w, n, v1, p1, f1,
+    v2, p2, f2; valid, opt1 and 4 int64 indices each), cor, the IMU bands,
+    gi and fm read once, H and g written once; for each valid factor the D
+    products of its binary side pairs (2 x 2 blocks of 144), the diagonal
+    payloads (3 coefficients x the 78 distinct entries of a side's
+    symmetric 12 x 12 outer product: side 1 only if binary) and g (12 a
+    side), as FMA at the f32 (or f64 tensor-core) peak."""
+    m = sfac.valid.shape[0]
+    n = 12 * s_cap
+    valid = int(sfac.valid.sum())
+    binary = int(sfac.valid[:nb].sum())
+    moved = m * (18 * itemsize + 2 + 32) + (12 + 5 * 144 + 24) * s_cap * itemsize \
+        + (n * n + n) * itemsize
+    flops = 2.0 * (binary * (4 * 144 + 3 * 78 + 12) + valid * (3 * 78 + 12))
+    return _bound(moved, fma=flops / (F32_FLOPS if itemsize == 4 else F64_FLOPS))
+
+
+def k6_library(sfac, cor, a2: float, s_cap: int, nb: int):
+    """K6's yardstick: the PyTorch calls it replaces on the same inputs, the
+    cross Gram b1^T b2 and the one-hot contractions (g and the diagonal
+    payloads), their operands made beforehand. Returns the function."""
+    import torch
+
+    from wildcat_slam_tpu_torch.odometry import factors as fmod
+
+    w1, w2 = fmod.interp_weights(sfac, s_cap, cor.dtype)
+    rs, jac, _ = fmod.surfel_residuals_plain(sfac, cor, w_interp=(w1, w2))
+    sw = 1.0 / torch.sqrt(1.0 + rs * rs / a2)
+    j1v = (jac[:, 0] + jac[:, 1]) * sw[:, None]
+    j2v = (jac[:, 2] + jac[:, 3]) * sw[:, None]
+    x1, x2 = j1v * (rs * sw)[:, None], j2v * (rs * sw)[:, None]
+    ar = torch.arange(s_cap, device=cor.device)
+    oh1 = (sfac.i1l[:nb, None] == ar).to(cor.dtype)
+    oh2 = (sfac.i2l[:, None] == ar).to(cor.dtype)
+    pay1 = torch.randn((nb, 3 * 144), dtype=cor.dtype, device=cor.device)
+    pay2 = torch.randn((sfac.valid.shape[0], 3 * 144), dtype=cor.dtype, device=cor.device)
+    b1 = (w1[:nb, :, None] * j1v[:nb, None, :]).reshape(nb, 12 * s_cap)
+    b2 = (w2[:nb, :, None] * j2v[:nb, None, :]).reshape(nb, 12 * s_cap)
+
+    def library():
+        return (b1.T @ b2, torch.einsum("ms,mi->si", w1, x1) + torch.einsum("ms,mi->si", w2, x2),
+                torch.einsum("ms,mx->sx", oh1, pay1) + torch.einsum("ms,mx->sx", oh2, pay2))
+
+    return library
+
+
+def factor_times(rec5: tuple, rec6: tuple) -> tuple:
+    """K5's and K6's rows on the main path's recorded inputs: the kernels'
+    times (single calls, back to back, graph replays) in normal mode and in
+    residual mode, the plain versions', the bounds, and K6's yardstick."""
+    from wildcat_slam_tpu_torch.odometry import factors as fmod
+    from wildcat_slam_tpu_torch.odometry import solver
+    from wildcat_slam_tpu_torch.ops import imu_factor, surfel_factor
+    from wildcat_slam_tpu_torch.profile_sweeps import graph_ms
+
+    ifac, cor, weights, dt, grav, s_cap = rec5
+    sfac, cor6, a2, bands, gi, fm, _, nb = rec6
+    err5 = check_k5("main-path", ifac, cor, weights, dt, grav)
+    err6 = check_k6("main-path", sfac, cor6, a2, bands, gi, fm, nb)
+    itemsize = cor.element_size()
+    k5 = lambda: imu_factor.normal_eqs(ifac, cor, weights, dt, grav)
+    k6 = lambda: surfel_factor.normal_eqs(sfac, cor6, a2, bands, gi, fm, nb)
+    r5 = lambda: imu_factor.residuals(ifac, cor, weights, dt, grav)
+    r6 = lambda: surfel_factor.residuals(sfac, cor6)
+    out = {}
+    bound_ms, bound_by = _k5_bound(ifac, s_cap, itemsize)
+    out["imu_factor"] = dict(
+        max_abs_err=err5, ms=_time_ms(k5), device_ms=_device_ms(k5), graph_ms=graph_ms(k5),
+        residual_device_ms=_device_ms(r5),
+        plain_ms=_time_ms(lambda: solver.imu_banded_normal_eqs_plain(ifac, cor, weights, dt,
+                                                                     grav, s_cap)),
+        residual_plain_ms=_time_ms(lambda: fmod.imu_residuals_plain(ifac, cor, weights, dt, grav,
+                                                                    with_jac=False)),
+        bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+    bound_ms, bound_by = _k6_bound(sfac, nb, s_cap, itemsize)
+    library = k6_library(sfac, cor6, a2, s_cap, nb)
+    out["surfel_factor"] = dict(
+        max_abs_err=err6, ms=_time_ms(k6), device_ms=_device_ms(k6), graph_ms=graph_ms(k6),
+        residual_device_ms=_device_ms(r6),
+        plain_ms=_time_ms(lambda: solver.surfel_normal_eqs_plain(sfac, cor6, a2, bands, gi, fm,
+                                                                 s_cap, nb)),
+        residual_plain_ms=_time_ms(lambda: fmod.surfel_residuals_plain(sfac, cor6,
+                                                                       with_jac=False)),
+        bound_ms=bound_ms, bound_by=bound_by, library_ms=_time_ms(library),
+        library_device_ms=_device_ms(library))
+    for key, name in (("imu_factor", "K5 imu_factor"), ("surfel_factor", "K6 surfel_factor")):
+        r = out[key]
+        lib = ("no PyTorch call computes it" if r["library_ms"] is None else
+               f"library (b1^T b2 and the one-hot einsums) {r['library_ms']:.4f} ms, back to "
+               f"back {r['library_device_ms']:.4f} ms")
+        print(f"{name} main-path time: kernel {r['ms']:.4f} ms by single synchronised calls, "
+              f"{r['device_ms']:.4f} ms back to back, {r['graph_ms']:.4f} ms by graph replays; "
+              f"residual mode {r['residual_device_ms']:.4f} ms back to back; plain "
+              f"{r['plain_ms']:.4f} ms (residuals alone {r['residual_plain_ms']:.4f} ms); {lib}; "
+              f"bound {r['bound_ms'] * 1e3:.2f} us ({r['bound_by']}), "
+              f"{r['bound_ms'] / r['graph_ms']:.2%} of the graph-replay time", flush=True)
+    return out
+
+
 def phase_kernels(dev) -> None:
     import numpy as np
     import torch
@@ -1013,6 +1343,15 @@ def phase_kernels(dev) -> None:
                 else "dataflow"
             check_k4(f"random ({path})", *spd_system(dev, n, m, dtype))
         check_k4_edges(dev, dtype)
+    # K5 and K6 at the main path's sizes (S=96, M=16384 of which 8192 binary,
+    # Mi=1536) with every state live and with 40, then at the edges: every
+    # factor invalid, a ragged M and Mi, S=8; in both dtypes
+    for dtype in (torch.float32, torch.float64):
+        check_factor_kernels("random", dev, dtype)
+        check_factor_kernels("random, 40 live states", dev, dtype, count=40, seed=1)
+        check_factor_kernels("every factor invalid", dev, dtype, valid_share=0.0, seed=2)
+        check_factor_kernels("ragged", dev, dtype, m=5001, nb=2001, mi=1001, seed=3)
+        check_factor_kernels("S=8", dev, dtype, s_cap=8, m=3000, nb=1000, mi=300, seed=4)
 
 
 def phase_main(dev) -> tuple:
@@ -1053,9 +1392,11 @@ def phase_eager(dev, main_lo, events) -> tuple:
     each feed, no graph) must equal the graph run bit for bit, in the
     trajectory and every packed output (iteration counts included). It
     records the inputs of the first K1 call and of each K2, K3 and K4 call
-    of its last sweep. Returns them and the eager frontend."""
+    of its last sweep, and of K5's and K6's first normal equations there.
+    Returns them and the eager frontend."""
     import numpy as np
 
+    from wildcat_slam_tpu_torch.odometry import solver
     from wildcat_slam_tpu_torch.ops import knn, pcg, spd
     from wildcat_slam_tpu_torch.ops import self_match as sm
 
@@ -1085,13 +1426,32 @@ def phase_eager(dev, main_lo, events) -> tuple:
         recorded["spd"] = (a.clone(), b.clone())
         return real_spd(a, b)
 
+    real_k5, real_k6 = solver._imu_banded_normal_eqs, solver._surfel_normal_eqs
+    clone = lambda x: x.map(lambda t: t.clone()) if hasattr(x, "map") else (
+        x.clone() if hasattr(x, "clone") else x)
+
+    def k5_recorder(ifac, cor, weights, dt, grav, s_cap):  # the sweep's first normal equations
+        if recorded.get("k5_sweep") != lo.sweep_id:
+            recorded["k5_sweep"] = lo.sweep_id
+            recorded["imu_factor"] = tuple(map(clone, (ifac, cor, weights, dt, grav, s_cap)))
+        return real_k5(ifac, cor, weights, dt, grav, s_cap)
+
+    def k6_recorder(sfac, cor, a2, imu_bands, gi, fm, s_cap, nb, w_interp=None):
+        if recorded.get("k6_sweep") != lo.sweep_id:
+            recorded["k6_sweep"] = lo.sweep_id
+            recorded["surfel_factor"] = tuple(map(clone, (sfac, cor, a2, imu_bands, gi, fm, s_cap,
+                                                          nb)))
+        return real_k6(sfac, cor, a2, imu_bands, gi, fm, s_cap, nb, w_interp)
+
     pcg.pcg_solve, knn.knn_bins, sm.self_match = pcg_recorder, bins_recorder, sm_recorder
     spd.spd_solve = spd_recorder
+    solver._imu_banded_normal_eqs, solver._surfel_normal_eqs = k5_recorder, k6_recorder
     try:
         _eager_feed(lo, events)
     finally:
         pcg.pcg_solve, knn.knn_bins, sm.self_match = real_pcg, real_bins, real_sm
         spd.spd_solve = real_spd
+        solver._imu_banded_normal_eqs, solver._surfel_normal_eqs = real_k5, real_k6
     same = _same_outputs(main_lo, lo)
     med = np.median(np.asarray(lo.sweep_seconds[1:]) * 1e3)
     print(f"(k) main sequence: eager process_sweep {lo.sweep_id} sweeps, per-sweep median "
@@ -1237,6 +1597,8 @@ def phase_replay(recorded: dict) -> dict:
                  out["spd"], "cholesky + cholesky_solve", f"; graph replays "
                  f"{out['spd']['graph_ms']:.4f} ms; library back to back "
                  f"{out['spd']['library_device_ms']:.4f} ms")
+    # K5 and K6 on the main path's last sweep's first normal equations
+    out.update(factor_times(recorded["imu_factor"], recorded["surfel_factor"]))
     h_lm, dlam_lm, _, b_lm, _, _ = recorded["pcg"]
     for dtype in (torch.float32, torch.float64):
         a_lm, rhs = (h_lm + torch.diag(dlam_lm)).to(dtype), b_lm[:, None].to(dtype)
@@ -2508,11 +2870,23 @@ def main() -> int:
         dict(name="spd_solve", route="cuda", source="wildcat_slam_tpu_torch/csrc/spd_solve.cu",
              replaces="wildcat_slam_tpu/odometry/corrections.py:57", launches=launches["spd"],
              **kern["spd"]),
+        # no pallas_call: XLA's fusions of imu_residuals, then _imu_banded_normal_eqs
+        dict(name="imu_factor", route="cuda",
+             source="wildcat_slam_tpu_torch/csrc/imu_factor.cu",
+             replaces="wildcat_slam_tpu/odometry/factors.py:468",
+             also_replaces="wildcat_slam_tpu/odometry/solver.py:78",
+             launches=launches["imu_factor"], **kern["imu_factor"]),
+        # no pallas_call: XLA's fusions of surfel_residuals, then _surfel_normal_eqs
+        dict(name="surfel_factor", route="cuda",
+             source="wildcat_slam_tpu_torch/csrc/surfel_factor.cu",
+             replaces="wildcat_slam_tpu/odometry/factors.py:344",
+             also_replaces="wildcat_slam_tpu/odometry/solver.py:122",
+             launches=launches["surfel_factor"], **kern["surfel_factor"]),
     ]
     for r in rows:
         nums = ("launches", "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms")
-        lib_ok = r["library_ms"] is None if r["name"] == "self_match" else math.isfinite(
-            r["library_ms"])
+        lib_ok = r["library_ms"] is None if r["name"] in ("self_match", "imu_factor") else \
+            math.isfinite(r["library_ms"])
         if not (r["launches"] > 0 and lib_ok and all(math.isfinite(r[k]) for k in nums)):
             raise AssertionError(f"missing or non-finite measurement: {r}")
     print(smi)

@@ -20,7 +20,11 @@ partners and rounds equal its plain version's bit for bit. K4 (spd_solve)
 factors in another order than cuSOLVER: its backward error |a x - b| /
 (|a| |x| + |b|) is at most 10 N eps of the dtype and its forward gap to the
 plain solve at most 100 kappa_2(a) eps (``spd.accuracy``), two runs and a
-graph replay give the same bits.
+graph replay give the same bits. K5 (imu_factor) and K6 (surfel_factor) sum
+in another order than their plain versions' einsums and products: every
+output within ``chip_smoke.FACTOR_RTOL`` (1e-4 in float32, 1e-10 in float64)
+of the plain version's largest entry, H and the IMU bands symmetric bit for
+bit, two runs and a graph replay give the same bits.
 """
 
 import importlib.util
@@ -34,7 +38,7 @@ import torch
 from wildcat_slam_tpu_torch.config import WildcatConfig
 from wildcat_slam_tpu_torch.io.synthetic import SyntheticSequence, ate_rmse
 from wildcat_slam_tpu_torch.odometry.pipeline import LidarOdometry
-from wildcat_slam_tpu_torch.ops import knn, pcg, spd
+from wildcat_slam_tpu_torch.ops import imu_factor, knn, pcg, spd, surfel_factor
 from wildcat_slam_tpu_torch.ops import self_match as sm
 
 pytestmark = pytest.mark.gpu
@@ -321,7 +325,7 @@ def test_small_pipeline_on_card_launches_both_kernels(cuda_device):
                         max_imu_states=640, max_sample_states=48, inner_iter_num_max=25)
     seq = SyntheticSequence(duration=1.6, points_per_scan=4000, room_half=4.0, seed=0)
     lo = LidarOdometry(cfg, device=cuda_device)
-    pcg.LAUNCHES = knn.LAUNCHES = 0
+    pcg.LAUNCHES = knn.LAUNCHES = imu_factor.LAUNCHES = surfel_factor.LAUNCHES = 0
     imu_iter = iter(seq.imu)
     pending = next(imu_iter, None)
     for ts, pl in seq.scans:
@@ -331,6 +335,7 @@ def test_small_pipeline_on_card_launches_both_kernels(cuda_device):
         lo.add_scan(ts, pl)
     assert lo.sweep_id >= 3
     assert pcg.LAUNCHES > 0 and knn.LAUNCHES > 0
+    assert imu_factor.LAUNCHES > 0 and surfel_factor.LAUNCHES > 0
     assert ate_rmse(lo.trajectory, lambda t: seq.gt_pose(t)[0], align=False) < 0.02
 
 
@@ -356,7 +361,12 @@ def test_wrappers_enter_the_tensors_card(cuda_device, monkeypatch):
     dt = torch.as_tensor(_cloud(rng, 1024), device=cuda_device)
     knn.knn_bins(dq, dt, 512)
     knn.knn_bins_mxu(*knn.mxu_embedding(dq, dt), 512)
-    assert entered == [cuda_device.index] * 3  # before synchronize, which enters one too
+    cs = _chip_smoke()
+    sfac, ifac, cor, grav, _, _ = cs.factor_problem(cuda_device, torch.float32, m=300, nb=100,
+                                                    mi=50, s_cap=8)
+    imu_factor.residuals(ifac, cor, cs.FACTOR_WEIGHTS, cs.FACTOR_DT, grav)
+    surfel_factor.residuals(sfac, cor)
+    assert entered == [cuda_device.index] * 5  # before synchronize, which enters one too
     torch.cuda.synchronize()
 
 
@@ -529,3 +539,60 @@ def test_spd_kernel_refuses_what_its_plan_cannot_take(cuda_device):
         spd.spd_solve(a, torch.ones((96, 33), device=cuda_device))
     with pytest.raises(ValueError):
         spd.spd_solve(a.half(), torch.ones((96, 1), device=cuda_device).half())
+
+
+FACTOR_CASES = {"main": {}, "live40": dict(count=40, seed=1),
+                "invalid": dict(valid_share=0.0, seed=2),
+                "ragged": dict(m=5001, nb=2001, mi=1001, seed=3),
+                "s8": dict(s_cap=8, m=3000, nb=1000, mi=300, seed=4)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["float32", "float64"])
+@pytest.mark.parametrize("case", list(FACTOR_CASES))
+def test_factor_kernels_match_plain(cuda_device, dtype, case):
+    """K5 and K6 at the main path's sizes (S=96, M=16384 of which 8192
+    binary, Mi=1536), with 40 live states, with every factor invalid, at a
+    ragged M and Mi, and at S=8 (chip_smoke.check_factor_kernels)."""
+    before = imu_factor.LAUNCHES, surfel_factor.LAUNCHES
+    _chip_smoke().check_factor_kernels(case, cuda_device, dtype, **FACTOR_CASES[case])
+    assert imu_factor.LAUNCHES > before[0] and surfel_factor.LAUNCHES > before[1]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["float32", "float64"])
+def test_factor_kernels_in_a_graph_equal_eager(cuda_device, dtype):
+    cs = _chip_smoke()
+    sfac, ifac, cor, grav, fm, nb = cs.factor_problem(cuda_device, dtype, seed=5)
+    w, dt, a2 = cs.FACTOR_WEIGHTS, cs.FACTOR_DT, cs.FACTOR_A2
+
+    def run():
+        bands, gi = imu_factor.normal_eqs(ifac, cor, w, dt, grav)
+        h, g = surfel_factor.normal_eqs(sfac, cor, a2, bands, gi, fm, nb)
+        return (bands, gi, h, g, imu_factor.residuals(ifac, cor, w, dt, grav),
+                surfel_factor.residuals(sfac, cor))
+
+    eager = run()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        captured = run()
+    for _ in range(2):
+        g.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(captured, eager))
+
+
+def test_factor_kernels_refuse_what_they_cannot_take(cuda_device):
+    cs = _chip_smoke()
+    sfac, ifac, cor, grav, fm, nb = cs.factor_problem(cuda_device, torch.float32, m=300, nb=100,
+                                                      mi=50, s_cap=8)
+    with pytest.raises(ValueError):
+        imu_factor.residuals(ifac, cor.half(), cs.FACTOR_WEIGHTS, cs.FACTOR_DT, grav.half())
+    with pytest.raises(ValueError):
+        surfel_factor.residuals(sfac, cor.double())  # the factors are float32
+    with pytest.raises(ValueError):
+        surfel_factor.normal_eqs(sfac, cor, cs.FACTOR_A2, torch.zeros((5, 8, 12, 12),
+                                 device=cuda_device), fm, fm, 301)  # nb > M

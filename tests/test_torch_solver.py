@@ -13,20 +13,33 @@
   ``solve_window(remap_proj=...)`` within 1e-8 (summation order only), and
   zero projectors leave the solve bit for bit unchanged.
 - ``residual_snapshot`` in float64 within 1e-10.
+- The normal equations (kernels K5's and K6's plain versions, the CPU's
+  ``_imu_banded_normal_eqs`` and ``_surfel_normal_eqs``) against the JAX
+  package's ``_imu_banded_normal_eqs``, ``_surfel_normal_eqs`` and
+  ``solve_window``'s assembly of H and g: the IMU bands and g, the surfel
+  factors' H and g alone, and the whole H and g, within 1e-12 of the largest
+  entry in float64 and 1e-5 in float32 (the JAX inputs cast to float32,
+  since ``conftest.py`` turns x64 on; the two packages' einsums and
+  products sum in other orders), H bit-exactly symmetric.
 """
+
+import functools
 
 import numpy as np
 import pytest
 import torch
+import jax
 import jax.numpy as jnp
 
 from wildcat_slam_tpu.odometry import factors as jf
+from wildcat_slam_tpu.odometry import solver as jsolver
 from wildcat_slam_tpu.odometry import states as jst
 from wildcat_slam_tpu.odometry.solver import _pcg_solve as j_pcg_xla
 from wildcat_slam_tpu.odometry.solver import residual_snapshot as j_snapshot
 from wildcat_slam_tpu.odometry.solver import solve_window as j_solve
 from wildcat_slam_tpu.ops import pcg_pallas
 from wildcat_slam_tpu_torch.odometry import factors as tf
+from wildcat_slam_tpu_torch.odometry import solver as tsolver
 from wildcat_slam_tpu_torch.odometry import states as tst
 from wildcat_slam_tpu_torch.odometry.solver import residual_snapshot as t_snapshot
 from wildcat_slam_tpu_torch.odometry.solver import solve_window as t_solve
@@ -241,3 +254,70 @@ def test_residual_snapshot_matches_jax(problem):
             np.testing.assert_array_equal(a.numpy(), np.asarray(b))
         else:
             np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=0, atol=1e-10)
+
+
+NE_TOL = {"float64": 1e-12, "float32": 1e-5}  # of the largest entry
+
+
+@functools.partial(jax.jit, static_argnums=(5, 6, 7))
+def _jax_normal_eqs(sfac, ifac, cor, grav, fm, s_cap, nb, dtype):
+    """The JAX package's normal equations as its ``solve_window`` assembles
+    them: (IMU bands (5, S, 12, 12), gi, (H, g), (H, g) of the surfel factors
+    alone), in one compiled program."""
+    a2 = SOLVE_KW["cauchy_scale"] ** 2
+    w1, w2 = jf.interp_weights(sfac, s_cap, dtype)
+    rs, jac_s, _ = jf.surfel_residuals(sfac, cor, w_interp=(w1, w2))
+    ri, jac_i, idx_i = jf.imu_residuals(ifac, cor, WEIGHTS, 0.005, grav)
+    sw = 1.0 / jnp.sqrt(1.0 + rs * rs / a2)
+    j1v = (jac_s[:, 0] + jac_s[:, 1]) * sw[:, None]
+    j2v = (jac_s[:, 2] + jac_s[:, 3]) * sw[:, None]
+    bands_i, gi = jsolver._imu_banded_normal_eqs(jac_i, idx_i, ri, s_cap)
+    stacked = jnp.stack([bands_i[d] for d in range(-2, 3)])
+    out = []
+    for bands, g_i in ((dict(bands_i), gi),
+                       ({d: jnp.zeros_like(b) for d, b in bands_i.items()}, jnp.zeros_like(gi))):
+        bands_s, d, gs = jsolver._surfel_normal_eqs(j1v, j2v, rs * sw, sfac, w1, w2, s_cap, nb)
+        for delta, blk in bands_s.items():
+            jsolver._add_band(bands, delta, blk)
+        h = jsolver._place_block_bands(bands, s_cap, dtype) + (d + d.T)
+        out.append((h * fm[:, None] * fm[None, :] + jnp.diag(1.0 - fm), (gs + g_i) * fm))
+    return stacked, gi, out[0], out[1]
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("part", ["imu", "surfel", "both"])
+def test_normal_equations_match_jax(problem, dtype, part):
+    """The port's plain normal equations (what the card's K5 and K6 compute)
+    against the JAX package's, at a perturbed correction with the gauge
+    mask of the window (live states, the first position frozen)."""
+    (js, jsf, jif), (ts, tsf, tif) = problem
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    j_cast = lambda x: x.astype(jdt) if jnp.issubdtype(x.dtype, jnp.floating) else x
+    t_cast = lambda x: x.to(tdt) if x.is_floating_point() else x
+    jsf, jif = (jax.tree_util.tree_map(j_cast, f) for f in (jsf, jif))
+    tsf, tif = tsf.map(t_cast), tif.map(t_cast)
+    s_cap, nb = ts.cor.shape[0], SOLVE_KW["n_binary"]
+    cor = np.random.default_rng(7).normal(scale=1e-3, size=(s_cap, 12))
+    par = np.arange(12 * s_cap)
+    fm = (((par // 12) < int(ts.count)) & ~((par >= 3) & (par < 6))).astype(dtype)
+    j_bands, j_gi, both, surfel = _jax_normal_eqs(jsf, jif, jnp.asarray(cor, jdt),
+                                                  jnp.asarray(np.asarray(js.grav), jdt),
+                                                  jnp.asarray(fm), s_cap, nb, jdt)
+    j_h, j_g = (np.asarray(x) for x in (surfel if part == "surfel" else both))
+    tcor, tgrav, tfm = torch.as_tensor(cor, dtype=tdt), ts.grav.to(tdt), torch.as_tensor(fm)
+    bands, gi = tsolver._imu_banded_normal_eqs(tif, tcor, WEIGHTS, 0.005, tgrav, s_cap)
+    assert bands.shape == (5, s_cap, 12, 12) and bands.dtype == tdt
+    if part == "surfel":
+        bands, gi = torch.zeros_like(bands), torch.zeros_like(gi)
+    h, g = tsolver._surfel_normal_eqs(tsf, tcor, SOLVE_KW["cauchy_scale"] ** 2, bands, gi, tfm,
+                                      s_cap, nb)
+    close = lambda got, want: np.testing.assert_allclose(
+        got.numpy(), want, rtol=0, atol=NE_TOL[dtype] * np.abs(want).max())
+    if part == "imu":
+        close(bands, np.asarray(j_bands))
+        close(gi, np.asarray(j_gi))
+    else:
+        close(h, j_h)
+        close(g, j_g)
+    assert torch.equal(h, h.T)
+    assert float(torch.max(torch.abs(h - torch.diag(torch.diagonal(h))))) > 0.0

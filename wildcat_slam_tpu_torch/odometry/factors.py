@@ -5,7 +5,11 @@ factors (unary + binary unified by scatter pairs) and the IMU triplet
 factors, with the same two corrected Jacobians as the JAX package (its module
 doc, items (a) and (b): no gyro/bias block for the second IMU time, and the
 first-time rotation block as the exact derivative of ``Exp(r)^-1``), and the
-degeneracy health signal with its weak-subspace projectors.
+degeneracy health signal with its weak-subspace projectors. On a CUDA tensor
+the residuals alone (``with_jac=False``: the cost, the residual snapshot)
+come from kernels K6 (``ops/surfel_factor.py``) and K5
+(``ops/imu_factor.py``); the Jacobian forms here are the kernels' plain
+versions, which ``solver.build_normal_eqs`` reduces on the CPU.
 """
 
 from __future__ import annotations
@@ -16,7 +20,7 @@ import torch
 
 from wildcat_slam_tpu_torch.odometry import imu as imu_mod
 from wildcat_slam_tpu_torch.odometry.states import SampleStates, Surfels, TensorStruct
-from wildcat_slam_tpu_torch.ops import lie
+from wildcat_slam_tpu_torch.ops import imu_factor, lie, surfel_factor
 from wildcat_slam_tpu_torch.ops.eigh3 import eigh3
 
 
@@ -191,7 +195,17 @@ def interp_weights(fac: SurfelFactors, s_cap: int, dtype):
 def surfel_residuals(fac: SurfelFactors, cor: torch.Tensor, with_jac: bool = True,
                      w_interp=None):
     """Residuals r = w n . (T1 - T2) and (optionally) Jacobian blocks onto the
-    sample blocks (i1l, i1r, i2l, i2r). Returns (r (M,), jac (M, 4, 12), idx (M, 4))."""
+    sample blocks (i1l, i1r, i2l, i2r). Returns (r (M,), jac (M, 4, 12), idx (M, 4)).
+    The residuals alone of a CUDA tensor come from kernel K6, the rest from
+    :func:`surfel_residuals_plain`."""
+    if not with_jac and cor.device.type != "cpu":
+        return surfel_factor.residuals(fac, cor), None, None
+    return surfel_residuals_plain(fac, cor, with_jac, w_interp)
+
+
+def surfel_residuals_plain(fac: SurfelFactors, cor: torch.Tensor, with_jac: bool = True,
+                           w_interp=None):
+    """:func:`surfel_residuals` in tensor operations (K6's plain version)."""
     if w_interp is not None:
         w1, w2 = w_interp
         c1, c2 = w1 @ cor, w2 @ cor
@@ -264,7 +278,16 @@ def imu_residuals(fac: ImuFactors, cor: torch.Tensor, weights, dt: float, grav: 
                   with_jac: bool = True):
     """12-dim IMU residual per factor and (optionally) Jacobian blocks. Returns
     (r (Mi, 12), jac (Mi, 6, 12, 12), idx (Mi, 6)); the 6 blocks are the
-    (left, right) brackets of the three IMU times."""
+    (left, right) brackets of the three IMU times. The residuals alone of a
+    CUDA tensor come from kernel K5, the rest from :func:`imu_residuals_plain`."""
+    if not with_jac and cor.device.type != "cpu":
+        return imu_factor.residuals(fac, cor, weights, dt, grav), None, None
+    return imu_residuals_plain(fac, cor, weights, dt, grav, with_jac)
+
+
+def imu_residuals_plain(fac: ImuFactors, cor: torch.Tensor, weights, dt: float,
+                        grav: torch.Tensor, with_jac: bool = True):
+    """:func:`imu_residuals` in tensor operations (K5's plain version)."""
     w_g, w_a, w_bg, w_ba = weights
     dtype = cor.dtype
     mi = fac.q1.shape[0]

@@ -34,15 +34,16 @@ import collections
 import contextlib
 import ctypes
 import dataclasses
+import gc
 import time
 
 import numpy as np
 import torch
 
 from wildcat_slam_tpu_torch.odometry.states import TensorStruct
-from wildcat_slam_tpu_torch.ops import _build, knn, pcg, self_match, spd
+from wildcat_slam_tpu_torch.ops import _build, imu_factor, knn, pcg, self_match, spd, surfel_factor
 
-KERNELS = ("pcg", "knn", "knn_mxu", "self_match", "spd")
+KERNELS = ("pcg", "knn", "knn_mxu", "self_match", "spd", "imu_factor", "surfel_factor")
 CAPTURED: collections.Counter = collections.Counter()
 _REPLAYED = {}  # device -> (len(KERNELS),) int64 launch counter that the graphs add to
 
@@ -50,7 +51,9 @@ _REPLAYED = {}  # device -> (len(KERNELS),) int64 launch counter that the graphs
 def wrapper_counts() -> collections.Counter:
     """The kernel wrappers' launch counts, by kernel."""
     return collections.Counter(pcg=pcg.LAUNCHES, knn=knn.LAUNCHES, knn_mxu=knn.MXU_LAUNCHES,
-                               self_match=self_match.LAUNCHES, spd=spd.LAUNCHES)
+                               self_match=self_match.LAUNCHES, spd=spd.LAUNCHES,
+                               imu_factor=imu_factor.LAUNCHES,
+                               surfel_factor=surfel_factor.LAUNCHES)
 
 
 def replay_counter(dev: torch.device) -> torch.Tensor:
@@ -64,6 +67,7 @@ def replay_counter(dev: torch.device) -> torch.Tensor:
 def reset_counts() -> None:
     """Every launch count to 0: the wrappers', the captures' and the replays'."""
     pcg.LAUNCHES = knn.LAUNCHES = knn.MXU_LAUNCHES = self_match.LAUNCHES = spd.LAUNCHES = 0
+    imu_factor.LAUNCHES = surfel_factor.LAUNCHES = 0
     CAPTURED.clear()
     for counter in _REPLAYED.values():
         counter.zero_()
@@ -228,18 +232,29 @@ class SweepGraph:
         t0 = time.perf_counter()
         stream = torch.cuda.Stream(dev)
         stream.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.device(dev), torch.cuda.stream(stream):
-            # one memory pool for all the graphs: they run one after another
-            # on one stream, so a block one frees the next may reuse
-            self._pool = torch.cuda.graph_pool_handle()
-            self._begin()
-            try:
-                new_state, self.outputs = sweep(self.state, *feed, lm_loop=self._capture_loop)
-                _write_back(self.state, new_state)
-            finally:
-                # a failed capture is ended too, so that the stream leaves capture mode
-                if self._current is not None:
-                    self.parts.append(self._end())
+        # a sweep graph dropped earlier (frontends hold theirs in reference
+        # cycles) and freed by the collector in the middle of this capture
+        # would free its memory pool, which a capture refuses: collect now,
+        # and not while capturing
+        gc.collect()
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.device(dev), torch.cuda.stream(stream):
+                # one memory pool for all the graphs: they run one after another
+                # on one stream, so a block one frees the next may reuse
+                self._pool = torch.cuda.graph_pool_handle()
+                self._begin()
+                try:
+                    new_state, self.outputs = sweep(self.state, *feed, lm_loop=self._capture_loop)
+                    _write_back(self.state, new_state)
+                finally:
+                    # a failed capture is ended too, so that the stream leaves capture mode
+                    if self._current is not None:
+                        self.parts.append(self._end())
+        finally:
+            if collecting:
+                gc.enable()
         torch.cuda.current_stream(dev).wait_stream(stream)
         t1 = time.perf_counter()
         self._compose()

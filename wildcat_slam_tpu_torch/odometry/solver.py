@@ -1,14 +1,19 @@
 """Sliding-window solver: Levenberg-Marquardt with Cauchy IRLS.
 
 Counterpart of ``wildcat_slam_tpu/odometry/solver.py``: the banded IMU normal
-equations, the structured surfel normal equations (diagonal families by
-one-hot contractions, the cross family by one (S*12 x nb) x (nb x S*12)
-product in full f32), exact symmetry of H, gauge masking, and Nielsen's
-gain-ratio LM schedule. The ``lax.while_loop`` keeps its state on the
-device (cor, cost, lambda, nu, the iteration count, H and g, updated in
-place) and leaves the loop to ``lm_loop``: run eagerly
-(:func:`lm_loop_eager`, the host reads the step's (re-linearise, done)
-flags), or, on the card, captured as an LM-step graph and a
+equations, the structured surfel normal equations, exact symmetry of H,
+gauge masking, and Nielsen's gain-ratio LM schedule. On a CUDA tensor the
+normal equations are two launches: kernel K5 (``ops/imu_factor.py``: the
+IMU factors' residuals, Jacobians and five block bands) and kernel K6
+(``ops/surfel_factor.py``: the surfel factors', the cross matrix D formed
+sparsely, and H assembled and masked); their plain versions
+(:func:`imu_banded_normal_eqs_plain`, :func:`surfel_normal_eqs_plain`: the
+diagonal families by one-hot contractions, the cross family by one
+(S*12 x nb) x (nb x S*12) product in full f32) run on the CPU. The
+``lax.while_loop`` keeps its state on the device (cor, cost, lambda, nu,
+the iteration count, H and g, updated in place) and leaves the loop to
+``lm_loop``: run eagerly (:func:`lm_loop_eager`, the host reads the step's
+(re-linearise, done) flags), or, on the card, captured as an LM-step graph and a
 re-linearisation graph (the JAX ``lax.cond``) that ``odometry/graph.py``
 runs in a device-side WHILE node, the flags read by a kernel.
 
@@ -36,6 +41,7 @@ import torch
 
 from wildcat_slam_tpu_torch.odometry import factors as fmod
 from wildcat_slam_tpu_torch.odometry.states import SampleStates
+from wildcat_slam_tpu_torch.ops import imu_factor, surfel_factor
 from wildcat_slam_tpu_torch.ops import pcg as pcg_mod
 from wildcat_slam_tpu_torch.ops import spd as spd_mod
 
@@ -63,10 +69,20 @@ def _place_block_bands(bands, s_cap: int, dtype, device):
     return h4.reshape(n, n)
 
 
-def _imu_banded_normal_eqs(jac, idx, ri, s_cap: int):
-    """IMU-factor contribution to (H, g): every factor spans a contiguous
-    3-block band from ``base = min(idx)``, so band outer products reduce per
-    base into (S, 36, 36) and read off as five block bands."""
+def _imu_banded_normal_eqs(ifac, cor, weights, dt: float, grav, s_cap: int):
+    """The IMU factors' part of (H, g): the five block bands (5, S, 12, 12),
+    band d holding the blocks at (r, r + d - 2), and g. Kernel K5 on a CUDA
+    tensor, :func:`imu_banded_normal_eqs_plain` on a CPU one."""
+    if cor.device.type != "cpu":
+        return imu_factor.normal_eqs(ifac, cor, weights, dt, grav)
+    return imu_banded_normal_eqs_plain(ifac, cor, weights, dt, grav, s_cap)
+
+
+def imu_banded_normal_eqs_plain(ifac, cor, weights, dt: float, grav, s_cap: int):
+    """K5's plain version: the residuals and Jacobians, then every factor's
+    contiguous 3-block band from ``base = min(idx)``, its outer products
+    reduced per base into (S, 36, 36) and read off as five block bands."""
+    ri, jac, idx = fmod.imu_residuals_plain(ifac, cor, weights, dt, grav)
     dtype = jac.dtype
     base = torch.min(idx, dim=1).values
     rel = idx - base[:, None]
@@ -83,36 +99,62 @@ def _imu_banded_normal_eqs(jac, idx, ri, s_cap: int):
         for dj in range(3):
             _add_band(bands, dj - di, _shift_down(hseg[:, di, :, dj, :], di))
     g = sum(_shift_down(gseg[:, di], di) for di in range(3)).reshape(s_cap * 12)
-    return bands, g
+    return torch.stack([bands[d] for d in range(-2, 3)]), g
 
 
-def _surfel_normal_eqs(j1v, j2v, rs_w, fac, w1, w2, s_cap: int, nb: int):
-    """Surfel-factor contribution: (bands, D, g) with D the dense cross
-    matrix over the binary rows (H gets D + D^T)."""
-    dtype = j1v.dtype
+def _surfel_normal_eqs(sfac, cor, a2: float, imu_bands, gi, fm, s_cap: int, nb: int,
+                       w_interp=None):
+    """(H, g) of the window: the surfel factors' part (the first nb binary)
+    with the IMU factors' bands and gi added and the gauge mask fm applied.
+    Kernel K6 on a CUDA tensor, :func:`surfel_normal_eqs_plain` on a CPU one
+    (``w_interp``: the plain version's (M, S) bracket-lerp matrices)."""
+    if cor.device.type != "cpu":
+        return surfel_factor.normal_eqs(sfac, cor, a2, imu_bands, gi, fm, nb)
+    return surfel_normal_eqs_plain(sfac, cor, a2, imu_bands, gi, fm, s_cap, nb, w_interp)
+
+
+def surfel_normal_eqs_plain(sfac, cor, a2: float, imu_bands, gi, fm, s_cap: int, nb: int,
+                            w_interp=None):
+    """K6's plain version: the residuals, IRLS weights and Jacobians, the
+    diagonal families by one-hot contractions, the dense cross matrix D over
+    the binary rows (H gets D + D^T), the bands placed, the mask applied."""
+    dtype = cor.dtype
     S = s_cap
-    g = (torch.einsum("ms,mi->si", w1, j1v * rs_w[:, None])
-         + torch.einsum("ms,mi->si", w2, j2v * rs_w[:, None])).reshape(S * 12)
-    ar = torch.arange(S, device=j1v.device)
+    if w_interp is None:
+        w_interp = fmod.interp_weights(sfac, s_cap, dtype)
+    rs, jac_s, _ = fmod.surfel_residuals_plain(sfac, cor, w_interp=w_interp)
+    sw = 1.0 / torch.sqrt(1.0 + rs * rs / a2)
+    j1v = (jac_s[:, 0] + jac_s[:, 1]) * sw[:, None]
+    j2v = (jac_s[:, 2] + jac_s[:, 3]) * sw[:, None]
+    rs_w = rs * sw
+    w1, w2 = w_interp
+    gs = (torch.einsum("ms,mi->si", w1, j1v * rs_w[:, None])
+          + torch.einsum("ms,mi->si", w2, j2v * rs_w[:, None])).reshape(S * 12)
+    ar = torch.arange(S, device=cor.device)
 
     def diag_payload(jv, f):
         a = (jv[:, :, None] * jv[:, None, :]).reshape(jv.shape[0], 144)
         c = torch.stack([(1.0 - f) * (1.0 - f), (1.0 - f) * f, f * f], 1)
         return (c[:, :, None] * a[:, None, :]).reshape(jv.shape[0], 3 * 144)
 
-    oh1 = (fac.i1l[:nb, None] == ar).to(dtype)
-    oh2 = (fac.i2l[:, None] == ar).to(dtype)
-    t11 = torch.einsum("ms,mx->sx", oh1, diag_payload(j1v[:nb], fac.f1[:nb])).reshape(S, 3, 12, 12)
-    t22 = torch.einsum("ms,mx->sx", oh2, diag_payload(j2v, fac.f2)).reshape(S, 3, 12, 12)
+    oh1 = (sfac.i1l[:nb, None] == ar).to(dtype)
+    oh2 = (sfac.i2l[:, None] == ar).to(dtype)
+    t11 = torch.einsum("ms,mx->sx", oh1, diag_payload(j1v[:nb], sfac.f1[:nb])).reshape(S, 3, 12, 12)
+    t22 = torch.einsum("ms,mx->sx", oh2, diag_payload(j2v, sfac.f2)).reshape(S, 3, 12, 12)
     tdiag = t11 + t22
-    bands = {}
+    bands = {d: imu_bands[d + 2] for d in range(-2, 3)}
     _add_band(bands, 0, tdiag[:, 0] + _shift_down(tdiag[:, 2], 1))
     _add_band(bands, 1, tdiag[:, 1])
     _add_band(bands, -1, _shift_down(tdiag[:, 1], 1))
     # the big Gram: full f32 (TF32 off, _numerics.py), outside any kernel
     b1 = (w1[:nb, :, None] * j1v[:nb, None, :]).reshape(nb, S * 12)
     b2 = (w2[:nb, :, None] * j2v[:nb, None, :]).reshape(nb, S * 12)
-    return bands, b1.T @ b2, g
+    d = b1.T @ b2
+    # (d + d.T) is exactly symmetric and the banded part is too, so H is
+    # bit-exactly symmetric (the K1 kernel reads its rows as columns)
+    h = _place_block_bands(bands, s_cap, dtype, cor.device) + (d + d.T)
+    h = h * fm[:, None] * fm[None, :] + torch.diag(1.0 - fm)
+    return h, (gs + gi) * fm
 
 
 def lm_loop_eager(lm_step, relinearize, max_iterations: int) -> None:
@@ -155,7 +197,9 @@ def solve_window(sample: SampleStates, sfac, ifac, weights, dt: float, grav,
     frozen_pos0 = (par_state == 0) & (par_slot >= 3) & (par_slot < 6) & fix_first_pos
     fm = ((par_state < sample.count) & ~frozen_pos0).to(dtype)
     nb = sfac.valid.shape[0] if n_binary is None else n_binary
-    w_interp = fmod.interp_weights(sfac, s_cap, dtype)
+    # the (M, S) bracket-lerp matrices of the plain versions; the kernels
+    # read the brackets themselves
+    w_interp = fmod.interp_weights(sfac, s_cap, dtype) if dev.type == "cpu" else None
     tiny = torch.finfo(dtype).tiny
 
     def remap_step(delta):
@@ -179,22 +223,8 @@ def solve_window(sample: SampleStates, sfac, ifac, weights, dt: float, grav,
 
     def build_normal_eqs(cor_flat):
         cor = cor_flat.reshape(s_cap, 12)
-        rs, jac_s, _ = fmod.surfel_residuals(sfac, cor, w_interp=w_interp)
-        ri, jac_i, idx_i = fmod.imu_residuals(ifac, cor, weights, dt, grav)
-        sw = 1.0 / torch.sqrt(1.0 + rs * rs / a2)
-        j1v = (jac_s[:, 0] + jac_s[:, 1]) * sw[:, None]
-        j2v = (jac_s[:, 2] + jac_s[:, 3]) * sw[:, None]
-        w1, w2 = w_interp
-        bands, gi = _imu_banded_normal_eqs(jac_i, idx_i, ri, s_cap)
-        bands_s, d, gs = _surfel_normal_eqs(j1v, j2v, rs * sw, sfac, w1, w2, s_cap, nb)
-        for delta, blk in bands_s.items():
-            _add_band(bands, delta, blk)
-        # (d + d.T) is exactly symmetric and the banded part is too, so H is
-        # bit-exactly symmetric (the K1 kernel reads its rows as columns)
-        h = _place_block_bands(bands, s_cap, dtype, dev) + (d + d.T)
-        h = h * fm[:, None] * fm[None, :] + torch.diag(1.0 - fm)
-        g = (gs + gi) * fm
-        return h, g
+        bands, gi = _imu_banded_normal_eqs(ifac, cor, weights, dt, grav, s_cap)
+        return _surfel_normal_eqs(sfac, cor, a2, bands, gi, fm, s_cap, nb, w_interp)
 
     def linear_solve(h, g, lam, d):
         dlam = lam * d

@@ -23,9 +23,20 @@ _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("pcg.cu", "knn_bins.cu", "knn_mxu.cu", "self_match.cu", "spd_solve.cu",
-           "sweep_graph.cu")
+           "imu_factor.cu", "surfel_factor.cu", "sweep_graph.cu")
+HEADERS = ("lie.cuh",)  # included by the sources: part of the library's hash
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# the factor kernels round each operation on its own, as their plain versions'
+# PyTorch operations do (no contraction into FMA; their sums' FMAs are explicit):
+# the float64 sweep then stays on the JAX package's float64 record as long as
+# the plain version does (chip_smoke (l))
+SOURCE_FLAGS = {"imu_factor.cu": ("-fmad=false",), "surfel_factor.cu": ("-fmad=false",)}
+
+
+def flags(source: str) -> tuple:
+    """nvcc's flags for one source."""
+    return NVCC_FLAGS + SOURCE_FLAGS.get(source, ())
 
 _lib = None
 
@@ -42,10 +53,11 @@ def _nvcc() -> str:
 
 def library_path() -> Path:
     h = hashlib.sha256()
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((SRC_DIR / name).read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(repr(sorted(SOURCE_FLAGS.items())).encode())
     return BUILD_DIR / f"libwildcat_kernels_{h.hexdigest()[:16]}.so"
 
 
@@ -59,7 +71,7 @@ def build() -> Path:
     objs = [so.with_suffix(f".{os.getpid()}.{Path(src).stem}.o") for src in SOURCES]
     nvcc = _nvcc()
     t0 = time.perf_counter()
-    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(SRC_DIR / src)]
+    cmds = [[nvcc, *flags(src), "-c", "-o", str(obj), str(SRC_DIR / src)]
             for src, obj in zip(SOURCES, objs)]
     procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
              for cmd in cmds]
@@ -91,6 +103,7 @@ def build() -> Path:
 
 
 _VP, _I32, _PP = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_void_p)
+_F64, _PF64 = ctypes.c_double, ctypes.POINTER(ctypes.c_double)
 # the C entry points: (argument types, return type)
 SIGNATURES = {
     "wc_pcg_solve": ([_VP] * 6 + [_I32, _I32, ctypes.c_float, _I32, _I32, _I32, _I32, _VP],
@@ -99,6 +112,9 @@ SIGNATURES = {
     "wc_knn_mxu": ([_VP] * 5 + [_I32] * 8 + [_VP], _I32),
     "wc_self_match": ([_VP] * 5 + [_I32] * 6 + [_VP], _I32),
     "wc_spd_solve": ([_VP] * 5 + [_I32] * 8 + [_VP], _I32),
+    "wc_imu_factor": ([_PP, _I32] + [_VP] * 5 + [_I32] * 4 + [_PF64] + [_I32] * 3 + [_VP], _I32),
+    "wc_surfel_factor": ([_PP, _I32] + [_VP] * 10 + [_I32] * 5 + [_F64, _I32, _I32, _VP],
+                         _I32),
     "wc_graph_create": ([_PP], _I32),
     "wc_graph_add_child": ([_VP, _PP, _VP], _I32),
     "wc_graph_add_lm_loop": ([_VP, _PP, _VP, _VP, _VP, _VP, _I32], _I32),
