@@ -1250,14 +1250,20 @@ def factor_times(rec5: tuple, rec6: tuple) -> tuple:
                                                                        with_jac=False)),
         bound_ms=bound_ms, bound_by=bound_by, library_ms=_time_ms(library),
         library_device_ms=_device_ms(library))
+    # the workspaces a normal-mode call takes from torch's allocator
+    p5 = imu_factor.plan(ifac.valid.shape[0], s_cap, itemsize)
+    p6 = surfel_factor.plan(sfac.valid.shape[0], nb, s_cap, itemsize)
+    work = {"imu_factor": f"workspace {imu_factor.workspace_bytes(p5, itemsize)} bytes a call",
+            "surfel_factor": f"workspace {surfel_factor.workspace_bytes(p6, itemsize)} bytes a "
+                             f"call ({4 * p6.ints} of them the lists)"}
     for key, name in (("imu_factor", "K5 imu_factor"), ("surfel_factor", "K6 surfel_factor")):
         r = out[key]
         lib = ("no PyTorch call computes it" if r["library_ms"] is None else
                f"library (b1^T b2 and the one-hot einsums) {r['library_ms']:.4f} ms, back to "
                f"back {r['library_device_ms']:.4f} ms")
         print(f"{name} main-path time: kernel {r['ms']:.4f} ms by single synchronised calls, "
-              f"{r['device_ms']:.4f} ms back to back, {r['graph_ms']:.4f} ms by graph replays; "
-              f"residual mode {r['residual_device_ms']:.4f} ms back to back; plain "
+              f"{r['device_ms']:.4f} ms back to back, {r['graph_ms']:.4f} ms by graph replays "
+              f"({work[key]}); residual mode {r['residual_device_ms']:.4f} ms back to back; plain "
               f"{r['plain_ms']:.4f} ms (residuals alone {r['residual_plain_ms']:.4f} ms); {lib}; "
               f"bound {r['bound_ms'] * 1e3:.2f} us ({r['bound_by']}), "
               f"{r['bound_ms'] / r['graph_ms']:.2%} of the graph-replay time", flush=True)

@@ -3,18 +3,22 @@ the CPU: their launch plans, their wrappers' refusal of CPU tensors, the CPU
 dispatch to the plain versions, and numpy models of how the kernels list
 and reduce the factors, held to the plain versions.
 
-The models follow ``csrc/imu_factor.cu`` and ``csrc/surfel_factor.cu``: a
-block row's scan gives each thread a few consecutive factors and places its
-members after those of the threads before it, by a warp scan of the
-threads' counts and the warps' totals (``wc::compact_many`` in
-``csrc/lie.cuh``), window after window, and each output entry is a chain
-over its factors in that order. Every factor must
-sit in exactly the block rows its brackets reach, in increasing index; K6's
-pair of block rows (s, t), s <= t, must find every factor of its cross
-terms in the lists of both rows (it walks the shorter); and the models'
-sums must equal the plain versions' within
-1e-12 of the largest entry in float64 (the order of the sums differs). The
-factors are ``chip_smoke.factor_problem``'s, made on the CPU from a seed.
+The models follow ``csrc/imu_factor.cu`` and ``csrc/surfel_factor.cu``: one
+stable counting pass over the grid. A block takes a segment of SEGMENT
+factors, sorts their keys with each factor's place (K6: the block rows and
+the pairs of block rows a factor reaches; K5: a kept factor's base) and
+writes them by key (its piece) with each key's exclusive offset; sums of the
+segments' counts and exclusive scans place K6's rows' lists, and a pair's
+(or a base's) list is its run in each segment's piece, segment after
+segment. Each list must hold what the kernels' first design listed: a row,
+the factors with i1l or i2l in {s - 1, s} in increasing index, each once; a
+pair (s, t), the factors that a walk of the shorter of the two rows' lists
+takes; a base, its factors in order, less those whose band is all zero with
+a finite residual (an invalid factor's exact zeros). Each output entry is a
+chain over its list, and the models' sums must equal the plain versions'
+within 1e-12 of the largest entry in float64 (the order of the sums
+differs). The factors are ``chip_smoke.factor_problem``'s, made on the CPU
+from a seed.
 """
 
 import importlib.util
@@ -42,34 +46,6 @@ def _chip_smoke():
 CS = _chip_smoke()
 
 
-def _scan(member, threads, window, per=8):
-    """wc::compact_many over windows of ``window`` factors, chunks of
-    ``threads`` x ``per`` factors, ``per`` consecutive ones a thread: a
-    thread's members go after the warp's earlier lanes' (the warp's
-    inclusive scan less its own count) and the earlier warps' totals.
-    Returns the factor indices in their list order, the windows one after
-    another (a window's list is processed before the next is scanned)."""
-    m, out = len(member), []
-    for w0 in range(0, m, window):
-        w1, slots, listed = min(m, w0 + window), {}, 0
-        for c0 in range(w0, w1, threads * per):
-            idx = np.arange(c0, c0 + threads * per).reshape(threads, per)
-            held = member[np.minimum(idx, m - 1)] & (idx < w1)
-            counts = held.sum(1)
-            scan = np.cumsum(counts.reshape(-1, 32), 1).reshape(-1)  # inclusive, per warp
-            totals = counts.reshape(-1, 32).sum(1)
-            for t in range(threads):
-                pos = listed + scan[t] - counts[t] + totals[:t // 32].sum()
-                for k in np.flatnonzero(held[t]):
-                    assert pos not in slots
-                    slots[pos] = idx[t, k]
-                    pos += 1
-            listed += totals.sum()
-        assert sorted(slots) == list(range(listed))
-        out += [slots[k] for k in range(listed)]
-    return np.asarray(out, dtype=np.int64)
-
-
 @pytest.fixture(scope="module")
 def problem():
     """A window of S=12 states (10 live), 9000 surfel factors (3000 binary)
@@ -80,26 +56,36 @@ def problem():
 
 
 def test_plans():
+    # K5 at the main path's sizes: a record of 12 x 36 + 12 values a factor
+    # and 702 sums a base; a segment's S + 1 offsets and its piece of 16
     for itemsize in (4, 8):
         p = imu_factor.plan(1536, 96, itemsize)
-        assert p.smem_bytes == imu_factor.smem_bytes(itemsize) <= imu_factor.H100_SMEM_PER_BLOCK
-    # S=96 at the main path's sizes: a record of 28 values a factor, a list
-    # of up to M entries of 4 int32 a block row, and the partial sums of at
-    # most S + 4 M / 64 chunks (a factor sits in at most 4 lists)
+        assert p == imu_factor.Plan(256, 16, 16, imu_factor.smem_bytes(itemsize),
+                                    1536 * 444 + 96 * 702, 96 * (97 + 16))
+        assert p.smem_bytes <= imu_factor.H100_SMEM_PER_BLOCK
+    assert imu_factor.smem_bytes(4) == 4 * 16 * 444 + 4 * (256 * 16 + 256 + 8) == 45856
+    assert imu_factor.workspace_bytes(imu_factor.plan(1536, 96, 4), 4) == 3040896
+    # K6 at S=96: a record of 28 values a factor and the partial sums of at
+    # most S + 4 M / 64 chunks; as int32 the packed brackets, each segment's
+    # row offsets and counts, pair offsets and pieces (4 entries a factor at
+    # most), the rows' lists (a factor sits in at most 4), the pairs' totals
+    # and the rows' starts: 2.10 MB of lists where the first design took
+    # S M int4 (25.2 MB)
     p = surfel_factor.plan(16384, 8192, 96, 4)
-    assert p == surfel_factor.Plan(256, 64, 16384 * 28, 4 * 96 * 16384,
-                                   (96 + 1024) * (6 * 144 + 24))
-    assert surfel_factor.plan(0, 0, 8, 8).workspace == 28
+    assert p == surfel_factor.Plan(256, 64, 128, 16384 * 28 + (96 + 1024) * (6 * 144 + 24),
+                                   2 * 16384 + 128 * (97 + 96 + 512) + 4 * 16384
+                                   + 64 * (4657 + 512) + 4656 + 2 * 97)
+    assert 4 * p.ints == 2096840 < 4 * 2**20
+    assert surfel_factor.workspace_bytes(p, 4) == 4 * (p.values + p.ints) == 7910088
+    assert surfel_factor.plan(0, 0, 8, 8).values == 8 * (6 * 144 + 24)
     for bad in ((10, 11, 96, 4), (10, 5, 96, 2), (10, 5, 0, 4), (10, 5, 5000, 4)):
         with pytest.raises(ValueError):  # nb > M, 2-byte values, S = 0, S > MAX_STATES
             surfel_factor.plan(*bad)
     assert surfel_factor.supports(16384, 8192, 96, torch.float64)
     assert not surfel_factor.supports(10, 11, 96, torch.float32)
     assert not surfel_factor.supports(10, 5, 96, torch.float16)
-    # the workspaces stay under MAX_WORKSPACE_BYTES: K6's lists grow as S M,
-    # K5's bands as Mi
-    assert surfel_factor.workspace_bytes(p, 96, 4) == (p.workspace + p.partials) * 4 + 4 * (
-        4 * 96 * 16384 + 96) == 30979456
+    # the workspaces stay under MAX_WORKSPACE_BYTES: K6's records and
+    # partial sums grow as M, its pair offsets as nb S^2; K5's bands as Mi
     assert not surfel_factor.supports(1 << 22, 0, 4096, torch.float32)
     with pytest.raises(ValueError):
         surfel_factor.plan(1 << 22, 0, 4096, 4)
@@ -133,18 +119,85 @@ def test_cpu_takes_the_plain_version_and_the_kernels_refuse_it(problem):
         surfel_factor.normal_eqs(sfac, cor, CS.FACTOR_A2, bands, gi, fm, nb)
 
 
+
+
 def _weight(il, ir, f, t):
     return (il == t) * (1.0 - f) + (ir == t) * f
 
 
-def test_k6_row_lists_and_pair_sums(problem):
-    """K6's model: block row s lists the factors with i1l or i2l in
-    {s - 1, s}; the pair (s, t), s <= t, finds D[(s,i),(t,j)] (side 1 at s,
-    side 2 at t) and D[(t,j),(s,i)] (side 1 at t, side 2 at s) in either
-    row's list; the diagonal payloads and g of row s sum over its list (in
-    chunks, added in order). The sums give the plain version's H and g
-    (without the IMU factors)."""
-    sfac, _, cor, _, fm, nb = problem
+def _pair_index(s, t, s_cap):
+    return s * s_cap - s * (s - 1) // 2 + (t - s)
+
+
+def _segments(keyed, m, seg):
+    """The counting pass's phase 0: ``keyed(i)`` gives factor i's keys; each
+    segment of ``seg`` factors sorts its (key, factor) pairs (the factor's
+    place in the low bits: stable). Returns each segment's sorted keys and
+    factors."""
+    out = []
+    for g0 in range(0, m, seg):
+        pairs = sorted((k, i) for i in range(g0, min(m, g0 + seg)) for k in keyed(i))
+        out.append((np.asarray([k for k, _ in pairs], dtype=np.int64),
+                    np.asarray([i for _, i in pairs], dtype=np.int64)))
+    return out
+
+
+def _runs(pieces, offsets, key):
+    """A key's list: its run in each segment's piece, segment after segment."""
+    return np.concatenate([piece[e[key]:e[key + 1]] for piece, e in zip(pieces, offsets)]
+                          + [np.zeros(0, dtype=np.int64)])
+
+
+def _k6_model(sfac, nb, s_cap):
+    """K6's lists by the counting pass: the rows' lists placed by scans over
+    the segments' counts, each pair's list read off the segments' pieces."""
+    f = {k: v.numpy() for k, v in sfac.fields().items()}
+    m, pairs, seg = len(f["i1l"]), s_cap * (s_cap + 1) // 2, surfel_factor.SEGMENT
+    pk = {k: np.clip(f[k], -2, s_cap) for k in ("i1l", "i1r", "i2l", "i2r")}  # 16-bit brackets
+
+    def keyed(i):
+        rows = []
+        for c in (f["i1l"][i], f["i1l"][i] + 1, f["i2l"][i], f["i2l"][i] + 1):
+            if 0 <= c < s_cap and c not in rows:
+                rows.append(int(c))
+        prs = []
+        for x in (pk["i1l"][i], pk["i1r"][i]):
+            for y in (pk["i2l"][i], pk["i2r"][i]):
+                q = s_cap + _pair_index(min(x, y), max(x, y), s_cap)
+                if i < nb and 0 <= x < s_cap and 0 <= y < s_cap and q not in prs:
+                    prs.append(int(q))
+        return rows + prs
+
+    segs = _segments(keyed, m, seg)
+    nrow = [int(np.searchsorted(k, s_cap)) for k, _ in segs]
+    erow = [np.searchsorted(k[:n], np.arange(s_cap + 1)) for (k, _), n in zip(segs, nrow)]
+    cnt = np.stack([np.diff(e) for e in erow]) if segs else np.zeros((0, s_cap), dtype=np.int64)
+    start = np.concatenate([[0], np.cumsum(cnt.sum(0))])
+    lists = np.full(int(start[-1]), -1, dtype=np.int64)
+    for g, ((_, fac), e) in enumerate(zip(segs, erow)):
+        pre = cnt[:g].sum(0)
+        for i in range(nrow[g]):
+            s = int(np.searchsorted(e, i, side="right")) - 1  # the entry's row
+            pos = start[s] + pre[s] + i - e[s]
+            assert lists[pos] == -1  # each place taken once
+            lists[pos] = fac[i]
+    assert (lists >= 0).all()
+    rows = [lists[start[s]:start[s + 1]] for s in range(s_cap)]
+    psegs = segs[:-(-nb // seg)]
+    epair = [np.searchsorted(k[n:], s_cap + np.arange(pairs + 1)) for (k, _), n in
+             zip(psegs, nrow)]
+    ppiece = [fac[n:] for (_, fac), n in zip(psegs, nrow)]
+    pair_lists = {}
+    for s in range(s_cap):
+        for t in range(s, s_cap):
+            pair_lists[(s, t)] = _runs(ppiece, epair, _pair_index(s, t, s_cap))
+    return rows, pair_lists, pk
+
+
+def _k6_sums(sfac, cor, fm, nb, rows, pair_lists):
+    """H and g (no IMU part) from the model's lists, as the kernel forms
+    them: a row's payloads and g over its list, each pair's cross terms over
+    its list."""
     s_cap, a2 = cor.shape[0], CS.FACTOR_A2
     f = {k: v.numpy() for k, v in sfac.fields().items()}
     rs, jac, _ = fmod.surfel_residuals_plain(sfac, cor)
@@ -152,112 +205,174 @@ def test_k6_row_lists_and_pair_sums(problem):
     j1v = ((jac[:, 0] + jac[:, 1]) * sw[:, None]).numpy()
     j2v = ((jac[:, 2] + jac[:, 3]) * sw[:, None]).numpy()
     rsw = (rs * sw).numpy()
-    m_all, n = np.arange(len(rsw)), 12 * s_cap
-    reach = lambda s: ((f["i1l"] == s) | (f["i1r"] == s) | (f["i2l"] == s) | (f["i2r"] == s)
-                       | ((m_all >= nb) & (f["i1l"] == s - 1)))  # a unary side 1 at (0, 0)
-    lists = []
-    for s in range(s_cap):
-        rows = (s - 1, s)
-        lst = _scan(np.isin(f["i1l"], rows) | np.isin(f["i2l"], rows), surfel_factor.THREADS,
-                    1 << 30)
-        assert lst.tolist() == np.flatnonzero(reach(s)).tolist()  # in index order, exactly
-        lists.append(lst)
+    n = 12 * s_cap
     h, g = np.zeros((n, n)), np.zeros(n)
-    for s in range(s_cap):
-        for t in range(s, s_cap):
-            a = np.zeros((12, 12))  # D[(s,i),(t,j)]
-            b = np.zeros((12, 12))  # D[(t,j),(s,i)], indexed [i][j]
-            x0, y0, x2, y2, g1, g2 = (np.zeros((12, 12)),) * 4 + (np.zeros(12),) * 2
-            for m in lists[s]:
-                bin_, i1l, i1r, i2l, i2r = m < nb, f["i1l"][m], f["i1r"][m], f["i2l"][m], f["i2r"][m]
-                side1, side2 = i1l in (s - 1, s), i2l in (s - 1, s)
-                if bin_ and side1 and t in (i2l, i2r):
-                    a = a + np.outer(_weight(i1l, i1r, f["f1"][m], s) * j1v[m],
-                                     _weight(i2l, i2r, f["f2"][m], t) * j2v[m])
-                if bin_ and side2 and t in (i1l, i1r):
-                    b = b + np.outer(_weight(i2l, i2r, f["f2"][m], s) * j2v[m],
-                                     _weight(i1l, i1r, f["f1"][m], t) * j1v[m])
-                f1, f2 = f["f1"][m], f["f2"][m]
-                c1, c2 = ((1 - f1) ** 2, (1 - f2) ** 2) if t == s else ((1 - f1) * f1, (1 - f2) * f2)
-                if t in (s, s + 1) and bin_ and i1l == s:
-                    x0 = x0 + c1 * np.outer(j1v[m], j1v[m])
-                if t in (s, s + 1) and i2l == s:
-                    y0 = y0 + c2 * np.outer(j2v[m], j2v[m])
-                if t == s and bin_ and i1l == s - 1:
-                    x2 = x2 + f1 * f1 * np.outer(j1v[m], j1v[m])
-                if t == s and i2l == s - 1:
-                    y2 = y2 + f2 * f2 * np.outer(j2v[m], j2v[m])
-                if t == s and side1:
-                    g1 = g1 + _weight(i1l, i1r, f1, s) * (j1v[m] * rsw[m])
-                if t == s and side2:
-                    g2 = g2 + _weight(i2l, i2r, f2, s) * (j2v[m] * rsw[m])
-            # every factor with a D term at (s, t) or (t, s) is in both rows' lists
-            for side_s, side_t in (((f["i1l"], f["i1r"]), (f["i2l"], f["i2r"])),
-                                   ((f["i2l"], f["i2r"]), (f["i1l"], f["i1r"]))):
-                both = ((m_all < nb) & ((side_s[0] == s) | (side_s[1] == s))
-                        & ((side_t[0] == t) | (side_t[1] == t)))
-                assert set(np.flatnonzero(both)) <= set(lists[s].tolist()) & set(
-                    lists[t].tolist())
-            blk = a + b
-            if t == s:
-                blk = blk + (x0 + y0) + (x2 + y2)
-                g[12 * s:12 * s + 12] = g1 + g2
-            elif t == s + 1:
-                blk = blk + (x0 + y0)
-            h[12 * s:12 * s + 12, 12 * t:12 * t + 12] = blk
-            h[12 * t:12 * t + 12, 12 * s:12 * s + 12] = blk.T
+    t11, t22 = np.zeros((s_cap, 3, 12, 12)), np.zeros((s_cap, 3, 12, 12))
+    for s, lst in enumerate(rows):
+        for m in lst:
+            f1, f2 = f["f1"][m], f["f2"][m]
+            if m < nb and f["i1l"][m] == s:
+                t11[s] += np.multiply.outer(np.array([(1 - f1) ** 2, (1 - f1) * f1, f1 * f1]),
+                                            np.outer(j1v[m], j1v[m]))
+            if f["i2l"][m] == s:
+                t22[s] += np.multiply.outer(np.array([(1 - f2) ** 2, (1 - f2) * f2, f2 * f2]),
+                                            np.outer(j2v[m], j2v[m]))
+            if f["i1l"][m] in (s - 1, s):
+                g[12 * s:12 * s + 12] += _weight(f["i1l"][m], f["i1r"][m], f1, s) * j1v[m] * rsw[m]
+            if f["i2l"][m] in (s - 1, s):
+                g[12 * s:12 * s + 12] += _weight(f["i2l"][m], f["i2r"][m], f2, s) * j2v[m] * rsw[m]
+    for (s, t), lst in pair_lists.items():
+        blk = np.zeros((12, 12))
+        for m in lst:
+            i1l, i1r, i2l, i2r, f1, f2 = (f[k][m] for k in ("i1l", "i1r", "i2l", "i2r", "f1", "f2"))
+            if s in (i1l, i1r) and t in (i2l, i2r):  # D[(s,i),(t,j)]
+                blk += np.outer(_weight(i1l, i1r, f1, s) * j1v[m],
+                                _weight(i2l, i2r, f2, t) * j2v[m])
+            if t in (i1l, i1r) and s in (i2l, i2r):  # D[(t,j),(s,i)], indexed [i][j]
+                blk += np.outer(_weight(i2l, i2r, f2, s) * j2v[m],
+                                _weight(i1l, i1r, f1, t) * j1v[m])
+        if t == s:
+            blk = blk + (t11[s, 0] + t22[s, 0]) + (
+                (t11[s - 1, 2] + t22[s - 1, 2]) if s > 0 else 0.0)
+        elif t == s + 1:
+            blk = blk + (t11[s, 1] + t22[s, 1])
+        h[12 * s:12 * s + 12, 12 * t:12 * t + 12] = blk
+        h[12 * t:12 * t + 12, 12 * s:12 * s + 12] = blk.T
     fmn = fm.numpy()
-    h = h * fmn[:, None] * fmn[None, :] + np.diag(1.0 - fmn)
-    zero = torch.zeros((5, s_cap, 12, 12), dtype=cor.dtype)
-    h_p, g_p = solver.surfel_normal_eqs_plain(sfac, cor, a2, zero, torch.zeros(n, dtype=cor.dtype),
-                                              fm, s_cap, nb)
-    np.testing.assert_allclose(h, h_p.numpy(), rtol=0, atol=TOL * np.abs(h_p.numpy()).max())
-    np.testing.assert_allclose(g * fmn, g_p.numpy(), rtol=0, atol=TOL * np.abs(g_p.numpy()).max())
-    assert np.count_nonzero(np.abs(h - np.diag(np.diag(h))) > 0) > 12 * n  # D is not empty
+    return h * fmn[:, None] * fmn[None, :] + np.diag(1.0 - fmn), g * fmn
 
 
-def test_k5_block_members_and_bands(problem):
-    """K5's model: block row r lists the factors whose base (the least of
-    their six bracket indices) is r - 2, r - 1 or r; its slabs of
-    hseg[r - di] (rows 12 di..12 di + 11 of the per-base sums of B^T B)
-    give the plain version's five bands and g, and band -d at r + d is the
-    transpose of band +d at r (bit for bit on the card, where both blocks
-    sum the same products in the same order; here within TOL)."""
-    _, ifac, cor, grav, _, _ = problem
-    s_cap = cor.shape[0]
+def _k5_model(ifac, cor, grav, s_cap):
+    """K5's base lists by the counting pass (the kept factors of segments
+    of SEGMENT, by base), the bases' sums over them and the bands read off.
+    Returns (lists, kept, base, bands, g)."""
     w, dt = CS.FACTOR_WEIGHTS, CS.FACTOR_DT
     ri, jac, idx = fmod.imu_residuals_plain(ifac, cor, w, dt, grav)
     ri, jac, idx = ri.numpy(), jac.numpy(), idx.numpy()
+    mi, seg = len(ri), imu_factor.SEGMENT
     base = idx.min(1)
-    band = np.zeros((len(base), 12, 36))
+    band = np.zeros((mi, 12, 36))
     for k in range(6):
-        for m in range(len(base)):
-            d = idx[m, k] - base[m]
-            if d <= 2:
-                band[m, :, 12 * d:12 * d + 12] += jac[m, k]
-    out, gout = np.zeros((5, s_cap, 12, 12)), np.zeros((s_cap, 12))
-    for r in range(s_cap):
-        member = (base >= 0) & (base >= r - 2) & (base <= r)
-        lst = _scan(member, imu_factor.THREADS, imu_factor.WINDOW)
-        assert lst.tolist() == np.flatnonzero(member).tolist()
-        slab, gs = np.zeros((3, 12, 36)), np.zeros((3, 12))
+        for d in range(3):
+            sel = idx[:, k] - base == d
+            band[sel, :, 12 * d:12 * d + 12] += jac[sel, k]
+    kept = (band != 0).any((1, 2)) | ~np.isfinite(ri).all(1)
+    segs = _segments(lambda i: [int(base[i])] if kept[i] and 0 <= base[i] < s_cap else [], mi,
+                     seg)
+    ebase = [np.searchsorted(k, np.arange(s_cap + 1)) for k, _ in segs]
+    lists = [_runs([fac for _, fac in segs], ebase, s) for s in range(s_cap)]
+    hseg, gseg = np.zeros((s_cap + 2, 36, 36)), np.zeros((s_cap + 2, 36))  # bases -2, -1 at the end
+    for s, lst in enumerate(lists):
         for m in lst:
-            di = r - base[m]
-            slab[di] += band[m][:, 12 * di:12 * di + 12].T @ band[m]
-            gs[di] += band[m][:, 12 * di:12 * di + 12].T @ ri[m]
-        s0, s1, s2 = slab
-        out[:, r] = (s2[:, 0:12], s1[:, 0:12] + s2[:, 12:24],
-                     s0[:, 0:12] + s1[:, 12:24] + s2[:, 24:36], s0[:, 12:24] + s1[:, 24:36],
-                     s0[:, 24:36])
-        gout[r] = gs[0] + gs[1] + gs[2]
-    # each factor in exactly the blocks base, base + 1, base + 2 (those < S)
-    counts = sum(((base >= 0) & (base >= r - 2) & (base <= r)).astype(int) for r in range(s_cap))
-    assert np.array_equal(counts, np.minimum(3, s_cap - base))
-    bands_p, g_p = solver.imu_banded_normal_eqs_plain(ifac, cor, w, dt, grav, s_cap)
+            hseg[s] += band[m].T @ band[m]
+            gseg[s] += band[m].T @ ri[m]
+    out, gout = np.zeros((5, s_cap, 12, 12)), np.zeros((s_cap, 12))
+    blk = lambda s, a, b: hseg[s, 12 * a:12 * a + 12, 12 * b:12 * b + 12]
+    for r in range(s_cap):
+        out[:, r] = (blk(r - 2, 2, 0), blk(r - 1, 1, 0) + blk(r - 2, 2, 1),
+                     blk(r, 0, 0) + blk(r - 1, 1, 1) + blk(r - 2, 2, 2),
+                     blk(r, 0, 1) + blk(r - 1, 1, 2), blk(r, 0, 2))
+        gout[r] = gseg[r, 0:12] + gseg[r - 1, 12:24] + gseg[r - 2, 24:36]
+    return lists, kept, base, band, out, gout.reshape(-1)
+
+
+@pytest.fixture(scope="module")
+def models(problem):
+    sfac, ifac, cor, grav, fm, nb = problem
+    rows, pair_lists, pk = _k6_model(sfac, nb, cor.shape[0])
+    return rows, pair_lists, pk, _k5_model(ifac, cor, grav, cor.shape[0])
+
+
+def test_k6_row_lists_and_pair_sums(problem, models):
+    """K6's model: the rows' lists and the pairs' lists of the counting pass
+    give the plain version's H and g (without the IMU factors), and the
+    cross terms D are not empty."""
+    sfac, _, cor, _, fm, nb = problem
+    rows, pair_lists, _, _ = models
+    s_cap, n = cor.shape[0], 12 * cor.shape[0]
+    h, g = _k6_sums(sfac, cor, fm, nb, rows, pair_lists)
+    zero = torch.zeros((5, s_cap, 12, 12), dtype=cor.dtype)
+    h_p, g_p = solver.surfel_normal_eqs_plain(sfac, cor, CS.FACTOR_A2, zero,
+                                              torch.zeros(n, dtype=cor.dtype), fm, s_cap, nb)
+    np.testing.assert_allclose(h, h_p.numpy(), rtol=0, atol=TOL * np.abs(h_p.numpy()).max())
+    np.testing.assert_allclose(g, g_p.numpy(), rtol=0, atol=TOL * np.abs(g_p.numpy()).max())
+    assert np.count_nonzero(np.abs(h - np.diag(np.diag(h))) > 0) > 12 * n  # D is not empty
+    assert sum(len(v) > 0 for v in pair_lists.values()) > s_cap  # off-diagonal pairs hold some
+
+
+def test_k5_block_members_and_bands(problem, models):
+    """K5's model: the bases' lists of the counting pass give the plain
+    version's five bands and g, and band -d at r + d is the transpose of
+    band +d at r (bit for bit on the card, where both read the same entries
+    of the symmetric per-base sums; here within TOL)."""
+    _, ifac, cor, grav, _, _ = problem
+    s_cap = cor.shape[0]
+    _, kept, _, _, out, gout = models[3]
+    bands_p, g_p = solver.imu_banded_normal_eqs_plain(ifac, cor, CS.FACTOR_WEIGHTS,
+                                                      CS.FACTOR_DT, grav, s_cap)
     np.testing.assert_allclose(out, bands_p.numpy(), rtol=0,
                                atol=TOL * np.abs(bands_p.numpy()).max())
-    np.testing.assert_allclose(gout.reshape(-1), g_p.numpy(), rtol=0,
-                               atol=TOL * np.abs(g_p.numpy()).max())
+    np.testing.assert_allclose(gout, g_p.numpy(), rtol=0, atol=TOL * np.abs(g_p.numpy()).max())
     for d in (1, 2):
         np.testing.assert_allclose(out[2 + d, :s_cap - d], out[2 - d, d:].transpose(0, 2, 1),
                                    rtol=0, atol=TOL * np.abs(out).max())
+    assert 0 < kept.sum() < len(kept)  # the invalid factors are left out, the valid ones kept
+
+
+@pytest.mark.parametrize("part", ["rows", "pairs", "bases", "sums"])
+def test_counting_pass_lists(problem, models, part):
+    """The counting pass lists what the kernels' first design listed: each
+    block row the factors with i1l or i2l in {s - 1, s}, in increasing
+    index, each once; each pair (s, t) the factors that a walk of the
+    shorter of the two rows' lists takes (binary, side 1 bracketed at one
+    row and side 2 at the other); each base its factors in order, less the
+    ones whose band is all zero with a finite residual (which add exact
+    zeros); and the models' sums give the plain versions' H and g."""
+    sfac, ifac, cor, grav, fm, nb = problem
+    rows, pair_lists, pk, (blists, kept, base, band, out, gout) = models
+    s_cap = cor.shape[0]
+    f = {k: v.numpy() for k, v in sfac.fields().items()}
+    if part == "rows":
+        for s, lst in enumerate(rows):
+            rule = np.isin(f["i1l"], (s - 1, s)) | np.isin(f["i2l"], (s - 1, s))
+            assert lst.tolist() == np.flatnonzero(rule).tolist()  # in order, each once
+        assert max(len(r) for r in rows) > 3 * len(f["i1l"]) / s_cap  # unary ones crowd rows 0, 1
+    elif part == "pairs":
+        for (s, t), lst in pair_lists.items():
+            walk = rows[s] if len(rows[s]) <= len(rows[t]) else rows[t]
+            at = lambda side, r: (pk[side + "l"][walk] == r) | (pk[side + "r"][walk] == r)
+            take = (walk < nb) & ((at("i1", s) & at("i2", t)) | (at("i1", t) & at("i2", s)))
+            assert lst.tolist() == walk[take].tolist()
+    elif part == "bases":
+        for s, lst in enumerate(blists):
+            assert lst.tolist() == np.flatnonzero(kept & (base == s)).tolist()
+        assert not band[~kept].any()  # the left-out factors' bands are exact zeros
+    else:
+        h, g = _k6_sums(sfac, cor, fm, nb, rows, pair_lists)
+        bands_p, gi_p = solver.imu_banded_normal_eqs_plain(ifac, cor, CS.FACTOR_WEIGHTS,
+                                                           CS.FACTOR_DT, grav, s_cap)
+        # the IMU part placed as the kernel places it, then the surfel part
+        h_p, g_p = solver.surfel_normal_eqs_plain(sfac, cor, CS.FACTOR_A2, torch.as_tensor(out),
+                                                  torch.as_tensor(gout), fm, s_cap, nb)
+        h_i, g_i = solver.surfel_normal_eqs_plain(sfac, cor, CS.FACTOR_A2, bands_p, gi_p, fm,
+                                                  s_cap, nb)
+        for got, ref in ((h_p, h_i), (g_p, g_i)):
+            np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=0,
+                                       atol=TOL * np.abs(ref.numpy()).max())
+        zb = torch.zeros((5, s_cap, 12, 12), dtype=cor.dtype)
+        h_s, g_s = solver.surfel_normal_eqs_plain(sfac, cor, CS.FACTOR_A2, zb,
+                                                  torch.zeros(12 * s_cap, dtype=cor.dtype), fm,
+                                                  s_cap, nb)
+        np.testing.assert_allclose(h, h_s.numpy(), rtol=0, atol=TOL * np.abs(h_s.numpy()).max())
+        np.testing.assert_allclose(g, g_s.numpy(), rtol=0, atol=TOL * np.abs(g_s.numpy()).max())
+
+
+@pytest.mark.parametrize("name", ["imu_factor.cu", "surfel_factor.cu"])
+def test_probe_finds_the_phase_marks(name):
+    """``probe_factors`` stamps each phase boundary by text edits of the
+    kernel's source: every mark is found once, and each stamp is put in."""
+    from wildcat_slam_tpu_torch import probe_factors
+
+    src = probe_factors.traced(name)
+    for k in range(len(probe_factors.STAMPS[name])):
+        assert f"probe_stamp({k});" in src

@@ -17,32 +17,47 @@
 // and g.
 //
 // Residual mode: one thread a factor writes r (Mi, 12), where(valid, r, 0).
-// Normal mode: one cooperative launch in two phases. Phase 1, a warp a
-// factor: lane 0 evaluates its residual and the 3 x 3 pieces of its
-// Jacobians, then the lanes form its band B (12 x 36) and write it, r and its
-// base to a workspace. A grid barrier. Phase 2, a block a block row r of H:
-// the block lists, in factor order, the factors whose base is r - 2, r - 1
-// or r (warp ballots, no atomics), stages their bands kBatch at a time in
-// shared memory and accumulates the three 12 x 36 slabs of hseg[r - di]
-// that its bands read, rows di*12..di*12+11, and the matching 12 entries of
-// gseg[r - di], each entry a chain over its factors in increasing index:
-// hb's entry is sum_k fma(B[k][a], B[k][b]) over the 12 rows k, then added
-// to the chain. Block r then writes
+// Normal mode: one cooperative launch in three phases, two grid barriers.
+// Phase 0, a block a segment of kSeg factors: a thread a factor evaluates
+// its residual and the 3 x 3 pieces of its Jacobians, then the block forms
+// the segment's bands B (12 x 36) in shared memory (a thread an entry of
+// the three 12 x 12 jt blocks, by selects: no branch a block, which the
+// lanes of a warp would take apart). A factor whose band is
+// all zero and whose residual is finite (an invalid factor: its Jacobian is
+// multiplied by 0, and the kernel checks that no term of it is infinite or
+// NaN) adds exact zeros to every chain and is left out; the others' bands and
+// residuals go to a workspace, and the segment lists them by base, stably
+// (its piece), with each base's exclusive offset in it. Phase 1, a block a
+// base s: the base's factors, in increasing index, are the runs of base s in
+// the segments' pieces, segment after segment (an exclusive scan of the
+// segments' counts); their bands are staged kBatch at a time (16-byte
+// asynchronous copies, all in flight at once) and each of hseg[s]'s 666
+// distinct entries (a <= b of the symmetric 36 x 36) and gseg[s]'s 36 is a
+// chain over them, a thread a 3 x 3 tile of them (each B[k][a] loaded once
+// for three chains): hb's entry is sum_k fma(B[k][a], B[k][b]) over the 12
+// rows k, then added to the chain.
+// Each chain is computed once, into a workspace. Phase 2, over the grid:
 //   band -2 = hseg[r-2](2,0),  band -1 = hseg[r-1](1,0) + hseg[r-2](2,1),
 //   band  0 = (hseg[r](0,0) + hseg[r-1](1,1)) + hseg[r-2](2,2),
 //   band +1 = hseg[r](0,1) + hseg[r-1](1,2),  band +2 = hseg[r](0,2),
 //   g[r] = (gseg[r](0) + gseg[r-1](1)) + gseg[r-2](2),
-// the order in which the plain version adds them. Blocks r and r + 1 both
-// accumulate hseg[r] (its rows 0-11 and 12-23) over the same factors in the
-// same order, and fma(x, y, c) = fma(y, x, c), so band -delta at r + delta
-// is the transpose of band +delta at r bit for bit, and H stays exactly
-// symmetric (K1 reads H's rows as its columns).
+// the order in which the plain version adds them: bands 0, +1 and +2 are
+// formed, each value written at (r, i, j) and, transposed, where band -d at
+// r + d (or band 0's (j, i)) reads the same entries of the symmetric hseg;
+// so H stays exactly symmetric (K1 reads H's rows as its columns). No
+// atomics: every place comes from counts and exclusive scans. Every chain
+// is the one of the kernel's first design (a block a block row over the
+// factors of bases r-2..r), in the same order, so the bits are too.
 //
-// What bounds it on an H100: operations. At Mi = 1536, S = 96 a call does
-// Mi (36 x 36 + 36) x 12 = 24 M FMA (~0.7 us at the f32 FMA peak) on
-// ~0.2 MB of factors. Each factor is evaluated once, by a warp of the whole
-// grid; its band is read by the three blocks whose bands it reaches, and a
-// block's chains run in registers over bands staged in shared memory.
+// What bounds it on an H100: operations, ~0.3 us at Mi = 1536, S = 96 (the
+// distinct entries of B^T B and B^T r over the valid factors, ~12 M FMA) on
+// ~0.2 MB of factors. What it takes is latency: a factor's evaluation is a
+// long dependent chain (sin, cos, atan, sqrt), and a base's chains run over
+// its factors one after another. So each factor is evaluated once, every
+// factor's chain starts at once over the grid, each base's sums are formed
+// once by one block (the bases' blocks run side by side) over its valid
+// factors only (on the main path ~256 invalid factors share base 0), and
+// the bands are read off in one pass.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -57,18 +72,20 @@ using wc::rfma;
 
 constexpr int kThreads = 256;       // a normal-mode block (ops/imu_factor.py THREADS)
 constexpr int kWarps = kThreads / 32;
-constexpr int kBatch = 32;          // bands staged together (ops/imu_factor.py BATCH)
-constexpr int kWindow = 2048;       // factors scanned before their members are processed
+constexpr int kSeg = 16;            // factors a segment (ops/imu_factor.py SEGMENT)
+constexpr int kBatch = 16;          // bands staged together (ops/imu_factor.py BATCH)
+constexpr int kTile = kThreads;     // segments gathered together
 constexpr int kResThreads = 128;    // a residual-mode block
 constexpr int kPieces = 48;         // a factor's pieces: r 12, four 3 x 3 blocks, lerp weights
 constexpr int kMeta = 8;            // base, rel (6), valid
 constexpr int kBand = 12 * 36;
-constexpr int kAcc = 3 * kBand + 36;  // three hseg slabs, three gseg pieces
-constexpr int kRec = kBand + 12;      // a factor's record in the workspace: its band, then r
-constexpr int kSlot = kPieces + 8;    // a warp's factor in phase 1: its pieces and weights
-constexpr int kScan = 8;              // consecutive factors a thread of a row's scan
-constexpr int kLoads = 8;             // a thread's loads in flight when it stages records
+constexpr int kRec = kBand + 12;      // a factor's record: its band, then r
+constexpr int kSlot = kPieces + 8;    // a factor's pieces and weights in phase 0
+constexpr int kTri = 36 * 37 / 2;     // the distinct entries of a base's symmetric hseg
+constexpr int kSum = kTri + 36;       // a base's chains: hseg's, then gseg's
+constexpr int kTiles = 12 * 13 / 2;  // 3 x 3 tiles of hseg's upper triangle, a thread each
 constexpr int kInputs = 14;
+static_assert(kSeg <= 32, "a segment's factors are the bits of a mask");
 
 template <typename T>
 struct Args {
@@ -176,47 +193,52 @@ __device__ void imu_eval(const Args<T>& a, int m, T* p, T* w, int* meta) {
   for (int k = 0; k < 6; ++k) meta[1 + k] = (int)(idx[k] - base);
 }
 
-// Entry (row, col) of jt_q (q = 0, 1, 2: the IMU times), from the pieces p.
+// Entry (row, col) of jt_q (q = 0, 1, 2: the IMU times), from the pieces p:
+// block (row / 3, col / 3) is a constant times a 3 x 3 piece, a constant
+// times the identity, or zero. Formed by selects, not a branch a block: the
+// lanes of a warp form entries of different blocks.
 template <typename T>
 __device__ __forceinline__ T jt_entry(const Args<T>& a, const T* p, int q, int row, int col) {
   const int br = row / 3, bc = col / 3, i = row % 3, j = col % 3;
   const T eye = i == j ? T(1) : T(0);
   const int blk = 4 * br + bc;
+  T c;
+  int off;  // the piece's offset, -1 for the identity, -2 for a zero block
   if (q == 0) {
-    switch (blk) {
-      case 0: return -a.wg_dt * p[kDth1 + 3 * i + j];
-      case 2: return -a.w_g * eye;
-      case 4: return a.w_a * p[kDacc + 3 * i + j];
-      case 5: return -a.wa_dt2 * eye;
-      case 7: return -a.w_a * p[kRq1c + 3 * i + j];
-      case 10: return a.w_bg * eye;
-      case 15: return a.w_ba * eye;
-      default: return T(0);
-    }
+    c = blk == 0 ? -a.wg_dt : blk == 2 ? -a.w_g : blk == 4 ? a.w_a : blk == 5 ? -a.wa_dt2
+        : blk == 7 ? -a.w_a : blk == 10 ? a.w_bg : a.w_ba;
+    off = blk == 0 ? kDth1 : blk == 4 ? kDacc : blk == 7 ? kRq1c
+        : blk == 2 || blk == 5 || blk == 10 || blk == 15 ? -1 : -2;
+  } else if (q == 1) {  // no (gyr, bg) block: the residual uses bg(tau1) only
+    c = blk == 0 ? -a.wg_dt : blk == 5 ? a.wa2_dt2 : blk == 10 ? -a.w_bg : -a.w_ba;
+    off = blk == 0 ? kDth2 : blk == 5 || blk == 10 || blk == 15 ? -1 : -2;
+  } else {
+    c = -a.wa_dt2;
+    off = blk == 5 ? -1 : -2;
   }
-  if (q == 1) {  // no (gyr, bg) block: the residual uses bg(tau1) only
-    switch (blk) {
-      case 0: return -a.wg_dt * p[kDth2 + 3 * i + j];
-      case 5: return a.wa2_dt2 * eye;
-      case 10: return -a.w_bg * eye;
-      case 15: return -a.w_ba * eye;
-      default: return T(0);
-    }
-  }
-  return blk == 5 ? (-a.wa_dt2 * eye) : T(0);
+  const T piece = p[(off >= 0 ? off : 0) + 3 * i + j];
+  return off == -2 ? T(0) : c * (off >= 0 ? piece : eye);
 }
 
-// Entry e (row e / 36, column e % 36) of a factor's band: column block d
-// holds the sum, in k order, of the Jacobian blocks k with rel_k = d, each
+// Entries (row, 12 d + col), d = 0, 1, 2, of a factor's band: column block
+// d holds the sum, in k order, of the Jacobian blocks k with rel_k = d, each
 // jt_(k/2) times its lerp weight times valid
 template <typename T>
-__device__ __forceinline__ T band_entry(const Args<T>& a, const T* p, const T* w, const int* mt,
-                                        int e) {
-  const int row = e / 36, col36 = e % 36, d = col36 / 12, col = col36 % 12;
-  T s = T(0);
-  for (int k = 0; k < 6; ++k)
-    if (mt[1 + k] == d) s = s + ((jt_entry(a, p, k >> 1, row, col) * w[kW + k]) * w[kW + 6]);
-  return s;
+__device__ __forceinline__ void band_entries(const Args<T>& a, const T* p, const T* w,
+                                             const int* mt, int row, int col, T* out) {
+  const T jt[3] = {jt_entry(a, p, 0, row, col), jt_entry(a, p, 1, row, col),
+                   jt_entry(a, p, 2, row, col)};
+  T s[3] = {T(0), T(0), T(0)};
+#pragma unroll
+  for (int k = 0; k < 6; ++k) {
+    const T x = (jt[k >> 1] * w[kW + k]) * w[kW + 6];
+    const int d = mt[1 + k];
+#pragma unroll
+    for (int dd = 0; dd < 3; ++dd)
+      if (d == dd) s[dd] = s[dd] + x;
+  }
+#pragma unroll
+  for (int dd = 0; dd < 3; ++dd) out[36 * row + 12 * dd + col] = s[dd];
 }
 
 template <typename T>
@@ -230,145 +252,244 @@ __global__ void __launch_bounds__(kResThreads)
   for (int c = 0; c < 12; ++c) r_out[12 * m + c] = p[c];
 }
 
+// The workspaces: values (the kept factors' records, then the bases' chains)
+// and int32 (each segment's offsets by base, then its piece), in this order
+// (ops/imu_factor.py plan)
+struct Sizes {
+  int nseg;
+  long long values, ints;
+};
+
+Sizes sizes(int mi, int s_cap) {
+  Sizes z;
+  z.nseg = (mi + kSeg - 1) / kSeg;
+  z.values = (long long)mi * kRec + (long long)s_cap * kSum;
+  z.ints = (long long)z.nseg * (s_cap + 1 + kSeg);
+  return z;
+}
+
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     imu_factor_normal(Args<T> a, T* __restrict__ bands, T* __restrict__ g_out,
-                      T* __restrict__ work, int* __restrict__ base_of) {
+                      T* __restrict__ work, T* __restrict__ hseg, int* __restrict__ ebase,
+                      int* __restrict__ piece, int nseg) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* band = reinterpret_cast<T*>(smem_raw);  // kBatch x kBand: phase 2's staged bands
-  T* res = band + kBatch * kBand;             // kBatch x 12: their residuals
-  T* wp = res + kBatch * 12;                  // kWarps x kSlot: phase 1's factors
-  T* slab = wp + kWarps * kSlot;              // kAcc: the finished chains
-  int* meta = reinterpret_cast<int*>(slab + kAcc);  // kWarps x kMeta
-  int* based = meta + kWarps * kMeta;         // kBatch: the staged factors' bases
-  int* list = based + kBatch;                 // kWindow
-  int* counts = list + kWindow;               // kWarps
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, s_cap = a.s_cap;
 
-  // phase 1: a warp a factor, over the whole grid
-  for (int m = blockIdx.x * kWarps + warp; m < a.mi; m += gridDim.x * kWarps) {
-    T* p = wp + warp * kSlot;
-    int* mt = meta + warp * kMeta;
-    if (lane == 0) imu_eval<T, true>(a, m, p, p + kPieces, mt);
-    __syncwarp();
-    T* rec = work + (size_t)m * kRec;
-    for (int e = lane; e < kBand; e += 32) rec[e] = band_entry(a, p, p + kPieces, mt, e);
-    if (lane < 12) rec[kBand + lane] = p[kR + lane];
-    if (lane == 0) base_of[m] = mt[0];
-    __syncwarp();
+  // phase 0: a block a segment: a thread a factor evaluates it, the block
+  // forms its band; the kept factors' records, listed by base
+  {
+    T* rec = reinterpret_cast<T*>(smem_raw);  // kSeg x kRec: the segment's bands and residuals
+    T* pc = rec + kSeg * kRec;                // kSeg x kSlot: pieces and weights
+    int* meta = reinterpret_cast<int*>(pc + kSeg * kSlot);  // kSeg x kMeta
+    int* masks = meta + kSeg * kMeta;         // kWarps: the kept factors, a bit each
+    for (int g = blockIdx.x; g < nseg; g += gridDim.x) {
+      const int m0 = g * kSeg, live = min(kSeg, a.mi - m0);
+      if (tid < live) imu_eval<T, true>(a, m0 + tid, pc + tid * kSlot, pc + tid * kSlot + kPieces,
+                                        meta + tid * kMeta);
+      __syncthreads();
+      // the bands, a thread an entry of a 12 x 12 block (its three column
+      // blocks); a factor is kept unless its band is all zero and its
+      // residual finite
+      unsigned keep = 0;
+      for (int e = tid; e < live * 144; e += kThreads) {
+        const int f = e / 144, row = (e % 144) / 12, col = e % 12;
+        const T* p = pc + f * kSlot;
+        T* out = rec + f * kRec;
+        band_entries(a, p, p + kPieces, meta + f * kMeta, row, col, out);
+#pragma unroll
+        for (int dd = 0; dd < 3; ++dd)
+          keep |= (out[36 * row + 12 * dd + col] != T(0) ? 1u : 0u) << f;
+      }
+      for (int e = tid; e < live * 12; e += kThreads) {
+        const T v = pc[(e / 12) * kSlot + kR + e % 12];
+        rec[(e / 12) * kRec + kBand + e % 12] = v;
+        keep |= (isfinite(v) ? 0u : 1u) << (e / 12);
+      }
+#pragma unroll
+      for (int d = 16; d >= 1; d >>= 1) keep |= __shfl_xor_sync(0xffffffffu, keep, d);
+      if (lane == 0) masks[warp] = (int)keep;
+      __syncthreads();
+      keep = 0;
+#pragma unroll
+      for (int v = 0; v < kWarps; ++v) keep |= (unsigned)masks[v];
+      for (int e = tid; e < live * kRec; e += kThreads)
+        if ((keep >> (e / kRec)) & 1u) work[(size_t)m0 * kRec + e] = rec[e];
+      // the kept factors with a base in [0, S), by base, stably
+      const int base = tid < live ? meta[tid * kMeta] : -1;
+      const bool listed = tid < live && ((keep >> tid) & 1u) && base >= 0 && base < s_cap;
+      if (listed) {
+        int rank = 0;
+        for (int f = 0; f < live; ++f) {
+          const int b = meta[f * kMeta];
+          rank += ((keep >> f) & 1u) && b >= 0 && (b < base || (b == base && f < tid)) ? 1 : 0;
+        }
+        piece[(size_t)g * kSeg + rank] = m0 + tid;
+      }
+      for (int s = tid; s <= s_cap; s += kThreads) {
+        int before = 0;
+        for (int f = 0; f < live; ++f) {
+          const int b = meta[f * kMeta];
+          before += ((keep >> f) & 1u) && b >= 0 && b < s ? 1 : 0;
+        }
+        ebase[(size_t)g * (s_cap + 1) + s] = before;
+      }
+      __syncthreads();  // the slots are rewritten by the block's next segment
+    }
   }
   cg::this_grid().sync();
 
-  // phase 2: a block a block row r
-  for (int r = blockIdx.x; r < a.s_cap; r += gridDim.x) {
-    // thread tid: entries tid and tid + kThreads (below kBand) of each slab,
-    // row tid of each gseg piece (tid < 12); every thread works on every factor
-    const int e0 = tid, e1 = tid + kThreads;
-    const int i0 = e0 / 36, c0 = e0 % 36, i1 = e1 / 36, c1 = e1 % 36;
-    const bool has1 = e1 < kBand, has_g = tid < 12;
-    T s0a = T(0), s0b = T(0), s1a = T(0), s1b = T(0), s2a = T(0), s2b = T(0);
-    T g0 = T(0), g1 = T(0), g2 = T(0);
-    for (int w0 = 0; w0 < a.mi; w0 += kWindow) {
-      const int w1 = min(a.mi, w0 + kWindow);
-      int listed = 0;
-      for (int cs = w0; cs < w1; cs += kThreads * kScan) {
-        const int m0 = cs + tid * kScan;
-        bool member[kScan];
+  // phase 1: a block a base: its factors gathered from the pieces in order,
+  // their bands staged kBatch at a time, each chain of hseg and gseg once
+  {
+    T* band = reinterpret_cast<T*>(smem_raw);        // kBatch x kRec
+    int* list = reinterpret_cast<int*>(band + kBatch * kRec);  // kTile x kSeg
+    int* cnt = list + kTile * kSeg;                  // kTile
+    int* scratch = cnt + kTile;                      // kWarps
+    // thread t < kTiles: the 3 x 3 tile (ta, tb), ta <= tb, of hseg (rows
+    // 3 ta.., columns 3 tb..); kTiles + r, r < 12: gseg's rows 3 r..3 r + 2
+    int ta = -1, tb = -1;
+    if (tid < kTiles) {
+      int e = tid, r = 0;
+      while (e >= 12 - r) e -= 12 - r++;
+      ta = r, tb = r + e;
+    } else if (tid < kTiles + 12) {
+      ta = tid - kTiles;
+    }
+    for (int s = blockIdx.x; s < s_cap; s += gridDim.x) {
+      T acc[9];
 #pragma unroll
-        for (int k = 0; k < kScan; ++k) {
-          const int base = m0 + k < w1 ? base_of[m0 + k] : -1;
-          member[k] = base >= 0 && base >= r - 2 && base <= r;
+      for (int u = 0; u < 9; ++u) acc[u] = T(0);
+      for (int t0 = 0; t0 < nseg; t0 += kTile) {
+        const int g = t0 + tid;
+        int off = 0, c = 0;
+        if (g < nseg) {
+          const int* e = ebase + (size_t)g * (s_cap + 1) + s;
+          off = e[0];
+          c = e[1] - off;
         }
-        listed += wc::compact_many<kWarps, kScan>(
-            member, m0, listed, [&](int pos, int k) { list[pos] = m0 + k; }, counts);
-      }
-      for (int b0 = 0; b0 < listed; b0 += kBatch) {
-        const int nb = min(kBatch, listed - b0);
-        // stage the batch's records, kLoads loads in flight a thread
-        for (int e0 = tid; e0 < nb * kRec; e0 += kLoads * kThreads) {
-          T v[kLoads];
-#pragma unroll
-          for (int u = 0; u < kLoads; ++u) {
-            const int e = e0 + u * kThreads;
-            v[u] = e < nb * kRec ? work[(size_t)list[b0 + e / kRec] * kRec + e % kRec] : T(0);
-          }
-#pragma unroll
-          for (int u = 0; u < kLoads; ++u) {
-            const int e = e0 + u * kThreads, j = e / kRec, c = e % kRec;
-            if (e >= nb * kRec) break;
-            if (c < kBand)
-              band[j * kBand + c] = v[u];
-            else
-              res[j * 12 + c - kBand] = v[u];
-          }
-        }
-        if (tid < nb) based[tid] = base_of[list[b0 + tid]];
+        cnt[tid] = c;
         __syncthreads();
-        // each chain over this batch's factors of its base, in order: the
-        // factor's hb entries (i, c) of slab di, sum_k fma(B[k][12 di + i], B[k][c])
-        for (int j = 0; j < nb; ++j) {
-          const int di = r - based[j];
-          const T* bj = band + j * kBand;
-          const T* rj = res + j * 12;
-          T va = T(0), vb = T(0), vg = T(0);
-#pragma unroll
-          for (int k = 0; k < 12; ++k) {
-            va = rfma(bj[36 * k + 12 * di + i0], bj[36 * k + c0], va);
-            if (has1) vb = rfma(bj[36 * k + 12 * di + i1], bj[36 * k + c1], vb);
-            if (has_g) vg = rfma(bj[36 * k + 12 * di + tid], rj[k], vg);
-          }
-          if (di == 0) {
-            s0a += va, s0b += vb, g0 += vg;
-          } else if (di == 1) {
-            s1a += va, s1b += vb, g1 += vg;
-          } else {
-            s2a += va, s2b += vb, g2 += vg;
-          }
-        }
+        const int total = wc::block_exclusive_scan<kWarps>(cnt, kTile, scratch);
+        for (int k = 0; k < c; ++k) list[cnt[tid] + k] = piece[(size_t)g * kSeg + off + k];
         __syncthreads();
+        for (int b0 = 0; b0 < total; b0 += kBatch) {
+          const int nbat = min(kBatch, total - b0);
+          constexpr int kUnits = kRec * sizeof(T) / 16;  // a record's 16-byte pieces
+          static_assert(kRec * sizeof(T) % 16 == 0, "records are copied 16 bytes at a time");
+          for (int v = tid; v < nbat * kUnits; v += kThreads) {
+            const int j = v / kUnits, piece = 16 * (v % kUnits);
+            wc::copy_async16(reinterpret_cast<char*>(band + j * kRec) + piece,
+                             reinterpret_cast<const char*>(work + (size_t)list[b0 + j] * kRec) +
+                                 piece);
+          }
+          wc::copy_async_wait();
+          __syncthreads();
+          // each chain over this batch's factors, in order: the factor's hb
+          // entry sum_k fma(B[k][a], B[k][b]) (or gb's, sum_k fma(B[k][a], r[k]))
+          if (ta >= 0)
+            for (int j = 0; j < nbat; ++j) {
+              const T* bj = band + j * kRec;
+              T hb[9];
+#pragma unroll
+              for (int u = 0; u < 9; ++u) hb[u] = T(0);
+              if (tb >= 0) {
+#pragma unroll
+                for (int k = 0; k < 12; ++k) {
+                  const T* row = bj + 36 * k;
+                  const T x[3] = {row[3 * ta], row[3 * ta + 1], row[3 * ta + 2]};
+                  const T y[3] = {row[3 * tb], row[3 * tb + 1], row[3 * tb + 2]};
+#pragma unroll
+                  for (int u = 0; u < 9; ++u) hb[u] = rfma(x[u / 3], y[u % 3], hb[u]);
+                }
+              } else {
+#pragma unroll
+                for (int k = 0; k < 12; ++k) {
+                  const T* row = bj + 36 * k;
+#pragma unroll
+                  for (int u = 0; u < 3; ++u) hb[u] = rfma(row[3 * ta + u], bj[kBand + k], hb[u]);
+                }
+              }
+#pragma unroll
+              for (int u = 0; u < 9; ++u) acc[u] = acc[u] + hb[u];
+            }
+          __syncthreads();  // the batch is restaged
+        }
+      }
+      // hseg's entries (a, b), a <= b, of the tile; gseg's rows
+      T* hs = hseg + (size_t)s * kSum;
+      if (tb >= 0) {
+#pragma unroll
+        for (int u = 0; u < 9; ++u) {
+          const int r = 3 * ta + u / 3, c = 3 * tb + u % 3;
+          if (r <= c) hs[r * 36 - r * (r - 1) / 2 + (c - r)] = acc[u];
+        }
+      } else if (ta >= 0) {
+#pragma unroll
+        for (int u = 0; u < 3; ++u) hs[kTri + 3 * ta + u] = acc[u];
       }
     }
-    slab[e0] = s0a, slab[kBand + e0] = s1a, slab[2 * kBand + e0] = s2a;
-    if (has1) slab[e1] = s0b, slab[kBand + e1] = s1b, slab[2 * kBand + e1] = s2b;
-    if (has_g) {
-      slab[3 * kBand + tid] = g0, slab[3 * kBand + 12 + tid] = g1;
-      slab[3 * kBand + 24 + tid] = g2;
-    }
-    __syncthreads();
-    // slab di (rows i, columns c) = hseg[r - di][12 di + i][c]
-    const int s_cap = a.s_cap;
-    for (int e = tid; e < 5 * 144; e += kThreads) {
-      const int d = e / 144, i = (e % 144) / 12, j = e % 12;
-      const T* s0 = slab + 36 * i;
-      const T* s1 = slab + kBand + 36 * i;
-      const T* s2 = slab + 2 * kBand + 36 * i;
-      T v;
-      switch (d) {
-        case 0: v = s2[j]; break;                                      // delta -2: (2, 0) at r - 2
-        case 1: v = s1[j] + s2[12 + j]; break;                    // delta -1
-        case 2: v = (s0[j] + s1[12 + j]) + s2[24 + j]; break;  // delta 0
-        case 3: v = s0[12 + j] + s1[24 + j]; break;               // delta +1
-        default: v = s0[24 + j]; break;                                // delta +2: (0, 2) at r
+  }
+  cg::this_grid().sync();
+
+  // phase 2: the bands and g read off hseg and gseg (a missing base's are 0)
+  {
+    auto hs = [&](int s, int r, int c) -> T {
+      if (s < 0) return T(0);
+      const int lo = min(r, c), hi = max(r, c);
+      return hseg[(size_t)s * kSum + lo * 36 - lo * (lo - 1) / 2 + (hi - lo)];
+    };
+    const long long items = (long long)s_cap * (3 * 144 + 12 + 2 * 144);
+    for (long long it = (long long)blockIdx.x * kThreads + tid; it < items;
+         it += (long long)gridDim.x * kThreads) {
+      const int r = (int)(it / (3 * 144 + 12 + 2 * 144)), k = (int)(it % (3 * 144 + 12 + 2 * 144));
+      if (k < 3 * 144) {
+        // band +delta at r, entry (i, j)
+        const int delta = k / 144, i = (k % 144) / 12, j = k % 12;
+        if (delta == 0 && i > j) continue;
+        T v;
+        if (delta == 0)
+          v = (hs(r, i, j) + hs(r - 1, 12 + i, 12 + j)) + hs(r - 2, 24 + i, 24 + j);
+        else if (delta == 1)
+          v = hs(r, i, 12 + j) + hs(r - 1, 12 + i, 24 + j);
+        else
+          v = hs(r, i, 24 + j);
+        bands[((size_t)(2 + delta) * s_cap + r) * 144 + 12 * i + j] = v;
+        if (delta == 0)
+          bands[((size_t)2 * s_cap + r) * 144 + 12 * j + i] = v;
+        else if (r + delta < s_cap)
+          bands[((size_t)(2 - delta) * s_cap + r + delta) * 144 + 12 * j + i] = v;
+      } else if (k < 3 * 144 + 12) {
+        const int i = k - 3 * 144;
+        auto gs = [&](int s, int c) -> T {
+          return s < 0 ? T(0) : hseg[(size_t)s * kSum + kTri + c];
+        };
+        g_out[12 * r + i] = (gs(r, i) + gs(r - 1, 12 + i)) + gs(r - 2, 24 + i);
+      } else {
+        // band -delta at r < delta: no base below 0 (band -1 at r: hseg[r-1](1,0) +
+        // hseg[r-2](2,1); band -2: hseg[r-2](2,0))
+        const int e = k - (3 * 144 + 12), delta = 1 + e / 144;
+        if (r < delta)
+          bands[((size_t)(2 - delta) * s_cap + r) * 144 + e % 144] =
+              delta == 1 ? T(0) + T(0) : T(0);
       }
-      bands[((size_t)d * s_cap + r) * 144 + 12 * i + j] = v;
     }
-    if (tid < 12) {
-      const T* gs = slab + 3 * kBand;
-      g_out[12 * r + tid] = (gs[tid] + gs[12 + tid]) + gs[24 + tid];
-    }
-    __syncthreads();  // slab is rewritten by the next row
   }
 }
 
+// The normal-mode block's dynamic shared memory: the larger phase's
 size_t normal_smem(int itemsize) {
-  return (size_t)itemsize * (kBatch * kBand + kBatch * 12 + kWarps * kSlot + kAcc) +
-         sizeof(int) * (kWarps * kMeta + kBatch + kWindow + kWarps);
+  const size_t p0 = (size_t)itemsize * (kSeg * kRec + kSeg * kSlot) +
+                    sizeof(int) * (kSeg * kMeta + kWarps);
+  const size_t p1 =
+      (size_t)itemsize * kBatch * kRec + sizeof(int) * (kTile * kSeg + kTile + kWarps);
+  return p0 > p1 ? p0 : p1;
 }
 
 int resident_cache[2][16];  // resident blocks of the normal-mode kernel, per type and card
 
 template <typename T>
-int launch(void* const* in, void* r_out, void* bands, void* g_out, void* work, void* base_of,
+int launch(void* const* in, void* r_out, void* bands, void* g_out, void* work, void* iwork,
            int mi, int s_cap, int normal, const double* k, cudaStream_t st) {
   Args<T> a;
   a.valid = static_cast<const unsigned char*>(in[0]);
@@ -394,16 +515,19 @@ int launch(void* const* in, void* r_out, void* bands, void* g_out, void* work, v
           a, static_cast<T*>(r_out));
     return (int)cudaGetLastError();
   }
+  const Sizes z = sizes(mi, s_cap);
   const size_t smem = normal_smem(sizeof(T));
   int resident = 0;
   cudaError_t err = wc::resident_blocks(imu_factor_normal<T>, kThreads, smem, &resident,
                                         resident_cache[sizeof(T) == 8]);
   if (err != cudaSuccess) return (int)err;
-  // phase 2 takes one block a block row; phase 1 one warp a factor
-  const int grid = min(resident, max(s_cap, (mi + kWarps - 1) / kWarps));
+  // phase 0 takes one block a segment, phase 1 one block a base
+  const int grid = min(resident, max(z.nseg, s_cap));
+  int* ints = static_cast<int*>(iwork);
   err = wc::launch_cooperative(imu_factor_normal<T>, dim3(grid), dim3(kThreads), smem, st, a,
                                static_cast<T*>(bands), static_cast<T*>(g_out),
-                               static_cast<T*>(work), static_cast<int*>(base_of));
+                               static_cast<T*>(work), static_cast<T*>(work) + (size_t)mi * kRec,
+                               ints, ints + (size_t)z.nseg * (s_cap + 1), z.nseg);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
@@ -413,22 +537,28 @@ int launch(void* const* in, void* r_out, void* bands, void* g_out, void* work, v
 // in: the kInputs input pointers (valid, q1, q2, a1, g1, g2, p1, p2, p3, il,
 // ir, f, cor, grav); consts: the nine values of Args' comment. Residual mode
 // (normal = 0) writes r_out (Mi, 12); normal mode writes bands (5, S, 12, 12)
-// and g_out (S 12), with work (Mi x (12 x 36 + 12) values) and base_of (Mi
-// int32) as its workspace. threads, batch and smem_bytes are the wrapper's
-// plan (ops/imu_factor.py), checked against the kernel's build.
+// and g_out (S 12), with work (values: the kept factors' bands and
+// residuals, then the bases' chains) and iwork (int32: the segments'
+// offsets by base and their pieces) as its workspace, of `values` and `ints`
+// entries. threads, segment, batch, smem_bytes, values and ints are the
+// wrapper's plan (ops/imu_factor.py), checked against the kernel's build.
 extern "C" int wc_imu_factor(void* const* in, int n_in, void* r_out, void* bands, void* g_out,
-                             void* work, void* base_of, int mi, int s_cap, int itemsize,
-                             int normal, const double* consts, int threads, int batch,
-                             int smem_bytes, void* stream) {
+                             void* work, void* iwork, int mi, int s_cap, int itemsize,
+                             int normal, const double* consts, int threads, int segment,
+                             int batch, int smem_bytes, long long values, long long ints,
+                             void* stream) {
   if (n_in != kInputs || mi < 0 || s_cap < 1 || (itemsize != 4 && itemsize != 8) ||
       (mi > 0 && mi > (1 << 26)))
     return (int)cudaErrorInvalidValue;
-  if (normal && (threads != kThreads || batch != kBatch ||
-                 (size_t)smem_bytes != normal_smem(itemsize)))
-    return (int)cudaErrorInvalidValue;
+  if (normal) {
+    const Sizes z = sizes(mi, s_cap);
+    if (threads != kThreads || segment != kSeg || batch != kBatch ||
+        (size_t)smem_bytes != normal_smem(itemsize) || values != z.values || ints != z.ints)
+      return (int)cudaErrorInvalidValue;
+  }
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   return itemsize == 4
-             ? launch<float>(in, r_out, bands, g_out, work, base_of, mi, s_cap, normal, consts, st)
-             : launch<double>(in, r_out, bands, g_out, work, base_of, mi, s_cap, normal, consts,
+             ? launch<float>(in, r_out, bands, g_out, work, iwork, mi, s_cap, normal, consts, st)
+             : launch<double>(in, r_out, bands, g_out, work, iwork, mi, s_cap, normal, consts,
                               st);
 }

@@ -1,12 +1,14 @@
-// SO(3) and quaternion helpers of the factor kernels (K5 csrc/imu_factor.cu,
-// K6 csrc/surfel_factor.cu): the device counterparts of ops/lie.py, with its
-// formulas and its Taylor branches (eps 1e-4 in float32 and 1e-8 in float64,
-// the series switch at 0.2 and 0.01), on 3-vectors, wxyz quaternions and
-// row-major 3 x 3 matrices held in plain arrays. Each function writes its
-// result into an output array that may not alias an input. The sources that
-// include it build with -fmad=false (ops/_build.py, SOURCE_FLAGS): every
-// product and sum rounds on its own, as the plain versions' PyTorch
-// operations do, and a sum's FMA is written out (rfma).
+// The factor kernels' shared device code (K5 csrc/imu_factor.cu, K6
+// csrc/surfel_factor.cu). SO(3) and quaternion helpers, the device
+// counterparts of ops/lie.py, with its formulas and its Taylor branches (eps
+// 1e-4 in float32 and 1e-8 in float64, the series switch at 0.2 and 0.01),
+// on 3-vectors, wxyz quaternions and row-major 3 x 3 matrices held in plain
+// arrays; each writes its result into an output array that may not alias an
+// input. Then the block-wide scan and sort of the kernels' counting passes,
+// and the cooperative launch. The sources that include it build with
+// -fmad=false (ops/_build.py, SOURCE_FLAGS): every product and sum rounds on
+// its own, as the plain versions' PyTorch operations do, and a sum's FMA is
+// written out (rfma).
 
 #pragma once
 
@@ -224,38 +226,85 @@ __device__ __forceinline__ void lerp_rows(const T* cor, long long il, long long 
   for (int c = 0; c < n; ++c) out[c] = a[c] * g + b[c] * f;
 }
 
-// A block's scan of factors for a block row's members, kPer consecutive
-// factors a thread: thread t holds member[k] of factor m0 + k (m0 = its
-// first); a warp scan of the threads' counts and the warps' totals place the
-// members in factor order after the `listed` ones: put(position, k) writes
-// member k of the thread's (no atomics). Returns the members this chunk added; every
-// thread of the block must call it.
-template <int kWarps, int kPer, typename Put>
-__device__ __forceinline__ int compact_many(const bool* member, int m0, int listed, Put put,
-                                            int* counts) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+// An exclusive scan of v[0..n) in place by the whole block (kWarps warps):
+// thread t sums a run of consecutive entries, a warp scan and the warps'
+// totals (scratch, kWarps ints) place the runs. Returns the total; every
+// thread of the block must call it. Integers, so the result does not depend
+// on any order.
+template <int kWarps>
+__device__ __forceinline__ int block_exclusive_scan(int* v, int n, int* scratch) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, nt = kWarps * 32;
+  const int per = (n + nt - 1) / nt, lo = min(n, tid * per), hi = min(n, lo + per);
   int c = 0;
-#pragma unroll
-  for (int k = 0; k < kPer; ++k) c += member[k] ? 1 : 0;
+  for (int i = lo; i < hi; ++i) c += v[i];
   int x = c;  // inclusive scan over the warp's lanes
 #pragma unroll
   for (int d = 1; d < 32; d <<= 1) {
     const int y = __shfl_up_sync(0xffffffffu, x, d);
     if (lane >= d) x += y;
   }
-  if (lane == 31) counts[warp] = x;
+  if (lane == 31) scratch[warp] = x;
   __syncthreads();
-  int pos = listed + x - c, total = 0;
+  int base = x - c, total = 0;
 #pragma unroll
   for (int w = 0; w < kWarps; ++w) {
-    pos += w < warp ? counts[w] : 0;
-    total += counts[w];
+    base += w < warp ? scratch[w] : 0;
+    total += scratch[w];
   }
-#pragma unroll
-  for (int k = 0; k < kPer; ++k)
-    if (member[k]) put(pos++, k);
-  __syncthreads();  // counts are rewritten by the next chunk
+  for (int i = lo; i < hi; ++i) {
+    const int y = v[i];
+    v[i] = base;
+    base += y;
+  }
+  __syncthreads();  // scratch is rewritten by the next scan
   return total;
+}
+
+// Sorts keys[0..n) ascending in shared memory, n = 2 kPer blockDim.x, by
+// the whole block: a bitonic network, each thread kPer compare-exchanges a
+// stage (their loads issued together) and a __syncthreads a stage. Keys
+// that carry their entry's position in their low bits make the sort
+// stable.
+template <int kPer>
+__device__ __forceinline__ void block_sort(unsigned* keys) {
+  const int n = 2 * kPer * blockDim.x;
+  for (int k = 2; k <= n; k <<= 1)
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      int i[kPer];
+      unsigned a[kPer], b[kPer];
+#pragma unroll
+      for (int u = 0; u < kPer; ++u) {
+        const int q = threadIdx.x + u * blockDim.x;  // the q-th pair: i with bit j clear, i | j
+        i[u] = ((q & ~(j - 1)) << 1) | (q & (j - 1));
+        a[u] = keys[i[u]];
+        b[u] = keys[i[u] | j];
+      }
+#pragma unroll
+      for (int u = 0; u < kPer; ++u)
+        if ((a[u] > b[u]) == ((i[u] & k) == 0)) keys[i[u]] = b[u], keys[i[u] | j] = a[u];
+      __syncthreads();
+    }
+}
+
+// The first index of the sorted keys[0..n) whose key is >= x
+__device__ __forceinline__ int lower_bound(const unsigned* keys, int n, unsigned x) {
+  int lo = 0, hi = n;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (keys[mid] < x) lo = mid + 1; else hi = mid;
+  }
+  return lo;
+}
+
+// An asynchronous 16-byte copy from device memory to shared memory (both
+// 16-byte aligned), and the wait for all of a thread's copies: loads that
+// stage data keep no registers, so a thread can have many in flight.
+__device__ __forceinline__ void copy_async16(void* smem, const void* gmem) {
+  const unsigned dst = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gmem) : "memory");
+}
+__device__ __forceinline__ void copy_async_wait() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
 }
 
 // A cooperative launch of `fn` (every block resident, so that a grid

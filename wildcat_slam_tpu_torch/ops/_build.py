@@ -103,6 +103,7 @@ def build() -> Path:
 
 
 _VP, _I32, _PP = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_void_p)
+_I64 = ctypes.c_longlong
 _F64, _PF64 = ctypes.c_double, ctypes.POINTER(ctypes.c_double)
 # the C entry points: (argument types, return type)
 SIGNATURES = {
@@ -112,9 +113,10 @@ SIGNATURES = {
     "wc_knn_mxu": ([_VP] * 5 + [_I32] * 8 + [_VP], _I32),
     "wc_self_match": ([_VP] * 5 + [_I32] * 6 + [_VP], _I32),
     "wc_spd_solve": ([_VP] * 5 + [_I32] * 8 + [_VP], _I32),
-    "wc_imu_factor": ([_PP, _I32] + [_VP] * 5 + [_I32] * 4 + [_PF64] + [_I32] * 3 + [_VP], _I32),
-    "wc_surfel_factor": ([_PP, _I32] + [_VP] * 10 + [_I32] * 5 + [_F64, _I32, _I32, _VP],
-                         _I32),
+    "wc_imu_factor": ([_PP, _I32] + [_VP] * 5 + [_I32] * 4 + [_PF64] + [_I32] * 4
+                      + [_I64] * 2 + [_VP], _I32),
+    "wc_surfel_factor": ([_PP, _I32] + [_VP] * 8 + [_I32] * 5 + [_F64] + [_I32] * 3
+                         + [_I64] * 2 + [_VP], _I32),
     "wc_graph_create": ([_PP], _I32),
     "wc_graph_add_child": ([_VP, _PP, _VP], _I32),
     "wc_graph_add_lm_loop": ([_VP, _PP, _VP, _VP, _VP, _VP, _I32], _I32),

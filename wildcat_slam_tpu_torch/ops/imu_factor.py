@@ -12,7 +12,12 @@ port's entry points ``factors.imu_residuals`` and
 ``solver._imu_banded_normal_eqs`` run it on CPU tensors and these on CUDA
 tensors. The kernel needs brackets whose six indices span at most three
 blocks from their minimum (the plain version drops a block beyond them, so
-does the kernel).
+does the kernel). What bounds it is latency (each factor's evaluation is a
+long dependent chain, and each base's sums run over its factors in order),
+not its ~0.3 us of operations: it evaluates each factor once on a thread of
+its own, lists the factors by base with one stable counting pass over the
+grid, forms each base's sums once, in a block of their own, over its valid
+factors only, and reads the bands off them in one pass.
 """
 
 from __future__ import annotations
@@ -27,53 +32,72 @@ from wildcat_slam_tpu_torch.ops import _build
 LAUNCHES = 0  # kernel launches by residuals and normal_eqs (not by the plain version)
 
 # csrc/imu_factor.cu, normal mode: one cooperative launch of blocks of
-# THREADS threads. Phase 1, a warp a factor, writes each factor's band
-# (12 x 36) and residual (12) to a workspace (RECORD values a factor) and its
-# base (int32); phase 2, a block a block row of H, stages BATCH bands at a
-# time. A block's shared memory holds the staged bands and residuals, a warp
-# slot of pieces (48) and weights (8) each, the finished chains (three
-# 12 x 36 slabs and 36 entries of g) and, as int32, a warp's meta (8) each,
-# the staged bases, the list of a window of WINDOW factors and a count a warp
+# THREADS threads, two grid barriers. A block takes a segment of SEGMENT
+# factors: a thread a factor evaluates it, the block forms the bands
+# (12 x 36) in shared memory, writes the kept factors' bands and residuals
+# to a workspace (RECORD values a factor) and lists them by base (a piece of
+# SEGMENT int32 and S + 1 offsets a segment). Then a block a base gathers
+# its factors from the pieces (TILE segments at a time) and stages BATCH
+# bands at a time; each base's CHAINS sums (hseg's distinct entries, gseg's)
+# go to the workspace. A block's shared memory holds, in phase 0, the
+# segment's records, pieces and weights (48 + 8 a factor) and, as int32,
+# their meta (8 a factor) and a mask a warp; in phase 1 the staged records
+# and, as int32, the gathered list, a count a segment of the tile and a
+# scratch value a warp.
 THREADS = 256
-BATCH = 32
-WINDOW = 2048
+SEGMENT = 16
+BATCH = 16
+TILE = THREADS
 RECORD = 12 * 36 + 12
+CHAINS = 36 * 37 // 2 + 36
 MAX_FACTORS = 1 << 26
-MAX_WORKSPACE_BYTES = 1 << 31  # a normal-mode call's workspace (the bands and bases)
+MAX_WORKSPACE_BYTES = 1 << 31  # a normal-mode call's workspaces together
 H100_SMEM_PER_BLOCK = 232_448  # opt-in shared memory of one block (227 KB)
 FIELDS = ("valid", "q1", "q2", "a1", "g1", "g2", "p1", "p2", "p3", "il", "ir", "f")
 
 
 class Plan(NamedTuple):
     threads: int     # a normal-mode block (the kernel is built for THREADS)
-    batch: int       # factors evaluated together (built for BATCH)
+    segment: int     # factors a segment of the counting pass (built for SEGMENT)
+    batch: int       # bands staged together (built for BATCH)
     smem_bytes: int  # dynamic shared memory of a normal-mode block
+    values: int      # the records (RECORD a factor), then the bases' sums (CHAINS a base)
+    ints: int        # int32: each segment's offsets by base and its piece
 
 
 def smem_bytes(itemsize: int) -> int:
     """The normal-mode block's shared memory (csrc/imu_factor.cu, normal_smem)."""
     warps = THREADS // 32
-    values = BATCH * 12 * 36 + BATCH * 12 + warps * (48 + 8) + 3 * 12 * 36 + 36
-    return itemsize * values + 4 * (warps * 8 + BATCH + WINDOW + warps)
+    phase0 = itemsize * SEGMENT * (RECORD + 48 + 8) + 4 * (SEGMENT * 8 + warps)
+    phase1 = itemsize * BATCH * RECORD + 4 * (TILE * SEGMENT + TILE + warps)
+    return max(phase0, phase1)
 
 
 def plan(mi: int, s_cap: int, itemsize: int,
          smem_per_block: int = H100_SMEM_PER_BLOCK) -> Plan:
-    """The normal-mode launch for Mi factors on S sample states (one block a
-    block row). Raises ValueError for what the kernel does not take, and
-    where the workspace would pass MAX_WORKSPACE_BYTES."""
+    """The normal-mode launch for Mi factors on S sample states. Raises
+    ValueError for what the kernel does not take, and where the workspaces
+    would pass MAX_WORKSPACE_BYTES."""
     if not 0 <= mi <= MAX_FACTORS or s_cap < 1 or itemsize not in (4, 8):
         raise ValueError(f"imu_factor: needs 0 <= Mi <= {MAX_FACTORS}, S >= 1 and float32 or "
                          f"float64, got Mi={mi}, S={s_cap}, {itemsize}-byte values")
-    work = max(mi, 1) * (RECORD * itemsize + 4)
-    if work > MAX_WORKSPACE_BYTES:
-        raise ValueError(f"imu_factor: Mi={mi} factors need {work} bytes of workspace, more "
-                         f"than {MAX_WORKSPACE_BYTES}")
-    smem = smem_bytes(itemsize)
-    if smem > smem_per_block:
-        raise ValueError(f"imu_factor: a block needs {smem} bytes of shared memory, more than "
-                         f"the {smem_per_block} it can have")
-    return Plan(THREADS, BATCH, smem)
+    nseg = -(-mi // SEGMENT)
+    p = Plan(THREADS, SEGMENT, BATCH, smem_bytes(itemsize), mi * RECORD + s_cap * CHAINS,
+             nseg * (s_cap + 1 + SEGMENT))
+    if workspace_bytes(p, itemsize) > MAX_WORKSPACE_BYTES:
+        raise ValueError(f"imu_factor: Mi={mi} factors on S={s_cap} states need "
+                         f"{workspace_bytes(p, itemsize)} bytes of workspace, more than "
+                         f"{MAX_WORKSPACE_BYTES}")
+    if p.smem_bytes > smem_per_block:
+        raise ValueError(f"imu_factor: a block needs {p.smem_bytes} bytes of shared memory, "
+                         f"more than the {smem_per_block} it can have")
+    return p
+
+
+def workspace_bytes(p: Plan, itemsize: int) -> int:
+    """The bytes a normal-mode call takes from torch's allocator besides the
+    bands and g: the values' and the int32 workspace."""
+    return p.values * itemsize + 4 * p.ints
 
 
 def supports(mi: int, s_cap: int, dtype: torch.dtype) -> bool:
@@ -122,16 +146,16 @@ def _launch(fac, cor, weights, dt: float, grav, r_out, bands, g_out, normal: boo
     p = plan(mi, s_cap, itemsize)
     ptrs = (ctypes.c_void_p * len(ins))(*(t.data_ptr() for t in ins))
     k = (ctypes.c_double * 9)(*consts(weights, dt))
-    work = base_of = None
-    if normal:  # the workspace of phase 1, from torch's allocator
-        work = torch.empty((max(mi, 1) * RECORD,), dtype=cor.dtype, device=cor.device)
-        base_of = torch.empty((max(mi, 1),), dtype=torch.int32, device=cor.device)
+    work = iwork = None
+    if normal:  # the workspaces, from torch's allocator
+        work = torch.empty((max(p.values, 1),), dtype=cor.dtype, device=cor.device)
+        iwork = torch.empty((max(p.ints, 1),), dtype=torch.int32, device=cor.device)
     ptr = lambda t: None if t is None else t.data_ptr()
     lib = _build.library()
     with torch.cuda.device(cor.device):  # the C entry launches on the current card
         err = lib.wc_imu_factor(ptrs, len(ins), ptr(r_out), ptr(bands), ptr(g_out), ptr(work),
-                                ptr(base_of), mi, s_cap, itemsize, int(normal), k, p.threads,
-                                p.batch, p.smem_bytes,
+                                ptr(iwork), mi, s_cap, itemsize, int(normal), k, p.threads,
+                                p.segment, p.batch, p.smem_bytes, p.values, p.ints,
                                 torch.cuda.current_stream(cor.device).cuda_stream)
     _build.check(err, "wc_imu_factor")
     LAUNCHES += 1

@@ -9,7 +9,13 @@ g (S 12) from the factors, the IMU factors' bands and g (kernel K5's
 output) and the gauge mask, one launch each of ``csrc/surfel_factor.cu`` on
 CUDA tensors; both raise for anything else. The cross matrix D over the
 binary rows is formed sparsely: the block (s, t) of H sums only the factors
-with a side bracketed at s and the other at t. The plain version is
+with a side bracketed at s and the other at t. What bounds the kernel is
+latency (dependent loads and FMA chains, grid barriers), not its ~2 us of
+bytes: it reads each factor once (two threads a factor), builds the block
+rows' lists and the pairs' lists by one stable counting pass over the grid
+(a block sorts a segment's keys; scans over the segments place them), gives
+a warp only to the pairs that hold factors, and spreads a row's sums over
+chunks and then a block. The plain version is
 ``odometry/factors.surfel_residuals_plain`` (with its Jacobians) followed by
 ``odometry/solver.surfel_normal_eqs_plain``; the port's entry points
 ``factors.surfel_residuals`` and ``solver._surfel_normal_eqs`` run it on CPU
@@ -34,17 +40,23 @@ from wildcat_slam_tpu_torch.ops import _build
 LAUNCHES = 0  # kernel launches by residuals and normal_eqs (not by the plain version)
 
 # csrc/surfel_factor.cu, normal mode: one cooperative launch of blocks of
-# THREADS threads. Phase 1 writes each factor's record (j1v, j2v, rs_w:
-# RECORD values) to a workspace and each block row's list (at most M entries
-# of 4 int32 a row: the factor and its packed brackets) with its length;
-# phase 2 takes a warp a pair of block rows or a chunk of CHUNK entries of a
-# row's list, whose partial sums (PARTIAL values) go to a workspace; phase 3
-# a warp a block row. A factor sits in at most four rows' lists, so there
-# are at most S + 4 M / CHUNK chunks.
+# THREADS threads, three grid barriers. A block takes a segment of SEGMENT
+# factors: it writes each factor's record (RECORD values: j1v, j2v, rs_w,
+# f1, f2) and packed brackets, sorts the segment's keys (the block rows and
+# the pairs of block rows each factor reaches, at most four of each) and
+# writes its pieces (its row entries and its pair entries, by key then
+# factor) with each key's offset in them, and its rows' counts; the rows'
+# lists (at most 4 M entries: a factor sits in at most four) are placed
+# after a scan over the segments. Then a warp a chunk of CHUNK entries of a
+# row's list (its partial sums, PARTIAL values, to a workspace; at most
+# S + 4 M / CHUNK chunks) or a pair of block rows that holds factors, whose
+# list is its run in each segment's pair piece; then a block a fifth of a
+# block row.
 THREADS = 256
 RECORD = 28
 CHUNK = 64
 PARTIAL = 6 * 144 + 24
+SEGMENT = 128
 MAX_FACTORS = 1 << 26
 MAX_STATES = 4096
 MAX_WORKSPACE_BYTES = 1 << 31  # a normal-mode call's workspaces together
@@ -55,32 +67,38 @@ FIELDS = ("valid", "w", "n", "opt1", "v1", "p1", "i1l", "i1r", "f1", "v2", "p2",
 class Plan(NamedTuple):
     threads: int    # a normal-mode block (the kernel is built for THREADS)
     chunk: int      # list entries a chunk (built for CHUNK)
-    workspace: int  # values of the factors' records
-    lists: int      # int32 of the block rows' lists: 4 S M
-    partials: int   # values of the chunks' partial sums: (S + 4 M / CHUNK) PARTIAL
+    segment: int    # factors a segment of the counting pass (built for SEGMENT)
+    values: int     # the records (RECORD a factor), then the chunks' partial sums
+    ints: int       # int32: packed brackets, the segments' pieces and offsets, the lists
 
 
 def plan(m: int, nb: int, s_cap: int, itemsize: int) -> Plan:
     """The normal-mode launch for M factors (nb binary) on S sample states.
     Raises ValueError for what the kernel does not take, and where the
-    workspaces would pass MAX_WORKSPACE_BYTES (the lists grow as S M)."""
+    workspaces would pass MAX_WORKSPACE_BYTES (the pair offsets grow as
+    nb S^2)."""
     if not 0 <= nb <= m <= MAX_FACTORS or not 1 <= s_cap <= MAX_STATES or itemsize not in (4, 8):
         raise ValueError(f"surfel_factor: needs 0 <= nb <= M <= {MAX_FACTORS}, 1 <= S <= "
                          f"{MAX_STATES} and float32 or float64, got M={m}, nb={nb}, S={s_cap}, "
                          f"{itemsize}-byte values")
-    p = Plan(THREADS, CHUNK, max(m, 1) * RECORD, max(4 * s_cap * m, 4),
-             (s_cap + 4 * m // CHUNK) * PARTIAL)
-    if workspace_bytes(p, s_cap, itemsize) > MAX_WORKSPACE_BYTES:
-        raise ValueError(f"surfel_factor: M={m} factors on S={s_cap} states need "
-                         f"{workspace_bytes(p, s_cap, itemsize)} bytes of workspace, more than "
+    nseg, npseg = -(-m // SEGMENT), -(-nb // SEGMENT)
+    pairs = s_cap * (s_cap + 1) // 2
+    piece = 4 * SEGMENT
+    values = m * RECORD + (s_cap + 4 * m // CHUNK) * PARTIAL
+    ints = (2 * m + nseg * (2 * s_cap + 1 + piece) + 4 * m + npseg * (pairs + 1 + piece) + pairs
+            + 2 * (s_cap + 1))
+    p = Plan(THREADS, CHUNK, SEGMENT, values, ints)
+    if workspace_bytes(p, itemsize) > MAX_WORKSPACE_BYTES:
+        raise ValueError(f"surfel_factor: M={m} factors ({nb} binary) on S={s_cap} states need "
+                         f"{workspace_bytes(p, itemsize)} bytes of workspace, more than "
                          f"{MAX_WORKSPACE_BYTES}")
     return p
 
 
-def workspace_bytes(p: Plan, s_cap: int, itemsize: int) -> int:
+def workspace_bytes(p: Plan, itemsize: int) -> int:
     """The bytes a normal-mode call takes from torch's allocator besides H
-    and g: the records, the lists and their lengths, the partial sums."""
-    return (p.workspace + p.partials) * itemsize + 4 * (p.lists + s_cap)
+    and g: the values' and the int32 workspace."""
+    return p.values * itemsize + 4 * p.ints
 
 
 def supports(m: int, nb: int, s_cap: int, dtype: torch.dtype) -> bool:
@@ -120,19 +138,17 @@ def _launch(fac, cor, nb: int, a2: float, r_out, imu_bands, gi, fm, h, g_out,
     m, s_cap, itemsize = fac.valid.shape[0], cor.shape[0], cor.element_size()
     p = plan(m, nb, s_cap, itemsize)
     ptrs = (ctypes.c_void_p * len(ins))(*(t.data_ptr() for t in ins))
-    work = lists = lens = part = None
-    if normal:  # the workspaces of phases 1 and 2, from torch's allocator
-        work = torch.empty((p.workspace,), dtype=cor.dtype, device=cor.device)
-        lists = torch.empty((p.lists,), dtype=torch.int32, device=cor.device)
-        lens = torch.empty((s_cap,), dtype=torch.int32, device=cor.device)
-        part = torch.empty((p.partials,), dtype=cor.dtype, device=cor.device)
+    work = iwork = None
+    if normal:  # the workspaces, from torch's allocator
+        work = torch.empty((max(p.values, 1),), dtype=cor.dtype, device=cor.device)
+        iwork = torch.empty((max(p.ints, 1),), dtype=torch.int32, device=cor.device)
     ptr = lambda t: None if t is None else t.data_ptr()
     lib = _build.library()
     with torch.cuda.device(cor.device):  # the C entry launches on the current card
         err = lib.wc_surfel_factor(ptrs, len(ins), ptr(r_out), ptr(imu_bands), ptr(gi), ptr(fm),
-                                   ptr(h), ptr(g_out), ptr(work), ptr(lists), ptr(lens),
-                                   ptr(part), m, nb, s_cap, itemsize, int(normal), float(a2),
-                                   p.threads, p.chunk,
+                                   ptr(h), ptr(g_out), ptr(work), ptr(iwork), m, nb, s_cap,
+                                   itemsize, int(normal), float(a2), p.threads, p.chunk,
+                                   p.segment, p.values, p.ints,
                                    torch.cuda.current_stream(cor.device).cuda_stream)
     _build.check(err, "wc_surfel_factor")
     LAUNCHES += 1
