@@ -36,18 +36,23 @@ non-zero):
                 in float32 and float64 on random factors at the main path's
                 sizes (S=96, M=16384 of which 8192 binary, Mi=1536), with
                 40 live states, every factor invalid, a ragged M and Mi, and
-                S=8 (FACTOR_RTOL; H and the IMU bands bit-symmetric);
+                S=8 (FACTOR_RTOL; H and the IMU bands bit-symmetric); K7
+                (surfel_extract) in float32 and float64 on the 4096-point
+                room sweep at the small and the tight capacities, with no
+                valid point, with every point in one voxel, and at P=5001
+                (K7_F64_TOL, K7_F32_TOL; two runs and a graph replay
+                bit-equal);
   4. main    -- LidarOdometry(WildcatConfig(), device="cuda") on an 8 s
                 synthetic sequence at 64k points per sweep: its first sweep
                 eager, the rest on its sweep graph (odometry/graph.py); ATE <
-                0.02 m, K1, K2 vpu, K3-K6 launched by that run (replays
+                0.02 m, K1, K2 vpu, K3-K7 launched by that run (replays
                 count the launches they hold), what the graph cost to capture;
                 then (k) the eager reference, process_sweep called directly
                 on each feed _prepare_feed builds: the graph run must equal it
                 bit for bit (trajectory, the 22 packed outputs); it records
                 the inputs of the first K1 call and of each K2, K3 and K4 call
-                of its last sweep, and of its first K5 and K6 normal
-                equations;
+                of its last sweep, of its first K5 and K6 normal
+                equations and of its last K7 extraction;
   5. replay  -- the mxu path, knn_topk(mode="mxu") on the recorded K2 inputs,
                 then each kernel against its plain version on the recorded
                 main-path inputs, with CUDA-event timings of both and of one
@@ -59,7 +64,9 @@ non-zero):
                 (library_device_ms, beside K4's device_ms); K5 and K6 in
                 both modes (the normal mode by graph replays too; K6's
                 yardstick the cross Gram b1^T b2 with the one-hot einsums it
-                replaces, K5's null);
+                replaces, K5's null); K7 in float32 and float64 (its times
+                with and without the three level sorts, the one library
+                call on its path; its yardstick null);
                 then K1's S-scaling table: K1 on the random S=96/192/256
                 systems, its time, iterations run, bound and share of it;
                 then each wrapper's cost (wrapper_costs): device time, time
@@ -187,7 +194,11 @@ and K6 sum in other orders than their plain versions' einsums and
 products: each output within 1e-10 (float64) or 1e-4 (float32) of the plain
 version's largest entry on the same inputs (FACTOR_RTOL; in float32 the
 plain version in float64 is printed beside it, not gated), H and the IMU
-bands bit-symmetric, two runs bit-equal. The
+bands bit-symmetric, two runs bit-equal. K7 (surfel extraction) sums
+the moments as its plain version does: its surfels' validity, time order
+and n_dropped must equal the plain version's and its floats at the valid
+surfels lie within 1e-10 (float64) or tests/test_torch_surfel.py's
+tolerances (float32) of the plain version's (K7_F64_TOL, K7_F32_TOL). The
 sweep graph runs the eager path's kernels in the eager path's order, so every
 graph run must equal its eager run bit for bit. K1 sums its
 matvec in another order than the plain version's cuBLAS gemv and CG
@@ -502,7 +513,7 @@ def _cloud(rng, n: int, spread: float = 5.0):
 def _counted(label: str, fn):
     """Run one path with every launch count set to 0 before it; returns fn's
     result and the counts read after it. The kernels of the main path (K1,
-    K2 vpu, K3, K4, K5, K6) must launch. A sweep graph's replays count the launches it
+    K2 vpu, K3-K7) must launch. A sweep graph's replays count the launches it
     holds, once a replay, and its capture counts none (``graph.launches``)."""
     import torch
 
@@ -513,7 +524,7 @@ def _counted(label: str, fn):
     torch.cuda.synchronize()
     counts = graph.launches()
     launches = {k: counts[k] for k in ("pcg", "knn", "self_match", "spd", "imu_factor",
-                                       "surfel_factor")}
+                                       "surfel_factor", "surfel_extract")}
     if not all(launches.values()):
         raise AssertionError(f"{label}: a kernel of the path did not launch: {launches}")
     return out, launches
@@ -1270,6 +1281,217 @@ def factor_times(rec5: tuple, rec6: tuple) -> tuple:
     return out
 
 
+# K7 (surfel_extract) against its plain version on the same inputs: the
+# surfels' validity, time order and n_dropped equal, two runs and a graph
+# replay bit-equal, every float at the valid surfels within K7_F64_TOL in
+# float64 and within tests/test_torch_surfel.py's tolerances in float32
+# (K7_F32_TOL). K7 sums the moments as the plain version does (its blocked
+# prefix, in its order), so they agree to the bit; eigh3 takes acos, cos,
+# sin and atan2 from the CUDA math library, and the normals and the stds
+# may differ in the last bits.
+K7_F64_TOL = 1e-10
+K7_F32_TOL = {"t": 1e-5, "center": 1e-5, "norm": 1e-5, "cov": 1e-7, "std": 5e-6,
+              "resolution": 1e-5}
+K7_FLOATS = ("t", "center", "norm", "cov", "std", "resolution")
+# tests/test_torch_surfel.py's configs: "tight" fires the segment, cluster
+# and surfel drops at once
+K7_CFGS = {"small": dict(max_points_per_sweep=4096, max_surfels_per_sweep=256,
+                         max_voxels_per_sweep=1024, max_leaves_per_sweep=2048),
+           "tight": dict(max_points_per_sweep=4096, max_surfels_per_sweep=16,
+                         max_voxels_per_sweep=48, max_leaves_per_sweep=64)}
+
+
+def k7_sweep(n: int = 4096, n_valid: int = 3800, seed: int = 3):
+    """tests/test_torch_surfel.py's room sweep (its 0.5 s of 800-point scans;
+    longer for more points): float64 numpy points (n, 3), times from 0 and
+    the first n_valid valid."""
+    import numpy as np
+
+    from wildcat_slam_tpu_torch.io.synthetic import SyntheticSequence
+
+    seq = SyntheticSequence(duration=0.5 * -(-n_valid // 3800), points_per_scan=800,
+                            room_half=4.0, seed=seed)
+    t = np.concatenate([s[0] for s in seq.scans])
+    p = np.concatenate([s[1] for s in seq.scans])
+    m = min(len(t), n_valid)
+    pts, ts = np.zeros((n, 3)), np.zeros(n)
+    pts[:m], ts[:m] = p[:m], t[:m] - t[0]
+    return pts, ts, np.arange(n) < m
+
+
+def k7_dense(p: int = 65536, seed: int = 11):
+    """K7's densest input at the shipped sizes: a 32 m x 32 m floor of
+    triangles of 3 points (within 1 cm), placed at random, 2e-5 s apart in
+    time (the cluster time gap 1e-5 s; 2e-6 s between a triangle's points),
+    min_points_per_plane 3: every triangle is a surfel candidate at levels 0
+    and 1, some 27,500 valid ones of the 3 nc = 49,152 cluster slots (the
+    time order's worst case is n_valid = 3 nc)."""
+    import numpy as np
+
+    from wildcat_slam_tpu_torch.config import WildcatConfig
+
+    rng = np.random.default_rng(seed)
+    n = p // 3
+    xy = np.repeat(rng.uniform(-16.0, 16.0, (n, 2)), 3, 0) + rng.uniform(-0.01, 0.01, (3 * n, 2))
+    pts, ts = np.zeros((p, 3)), np.zeros(p)
+    pts[:3 * n] = np.stack([xy[:, 0], xy[:, 1], -1.5 + 0.02 * xy[:, 0]
+                            + rng.normal(0, 1e-3, 3 * n)], 1)
+    ts[:3 * n] = np.repeat(np.arange(n) * 2e-5, 3) + np.tile(np.arange(3) * 2e-6, n)
+    return pts, ts, np.arange(p) < 3 * n, WildcatConfig(min_points_per_plane=3,
+                                                        cluster_time_gap=1e-5)
+
+
+def k7_inputs() -> dict:
+    """K7's inputs beside the main path's, as float64 numpy arrays and a
+    config: the room sweep at the small and the tight capacities, every
+    point invalid, every point in one level-0 voxel (four passes 0.1 s
+    apart over a tilted patch), P=5001 (not a multiple of the tiles), and
+    :func:`k7_dense`."""
+    import numpy as np
+
+    from wildcat_slam_tpu_torch.config import WildcatConfig
+
+    pts, ts, valid = k7_sweep()
+    rng = np.random.default_rng(7)
+    xy = rng.uniform(0.05, 0.75, (4096, 2))
+    one = np.stack([xy[:, 0], xy[:, 1], 0.4 + 0.05 * xy[:, 0] + rng.normal(0, 0.002, 4096)], 1)
+    one_t = np.repeat(np.arange(4) * 0.1, 1024) + np.tile(np.linspace(0, 0.02, 1024), 4)
+    big = dict(K7_CFGS["small"], max_points_per_sweep=5001)
+    return {"room": (pts, ts, valid, WildcatConfig(**K7_CFGS["small"])),
+            "room, tight": (pts, ts, valid, WildcatConfig(**K7_CFGS["tight"])),
+            "every point invalid": (pts, ts, np.zeros(4096, bool),
+                                    WildcatConfig(**K7_CFGS["small"])),
+            "one voxel": (one, one_t, np.ones(4096, bool), WildcatConfig(**K7_CFGS["small"])),
+            "P=5001": (*k7_sweep(5001, 4990), WildcatConfig(**big)),
+            "dense": k7_dense()}
+
+
+def _k7_same(a: dict, b: dict) -> bool:
+    import torch
+
+    return all(torch.equal(torch.nan_to_num(a[k]), torch.nan_to_num(b[k])) for k in a)
+
+
+def check_k7(label: str, pts, t, valid, cfg) -> float:
+    """K7 against its plain version on these inputs (K7_F64_TOL,
+    K7_F32_TOL): the surfels' validity, time order and n_dropped equal, every
+    float at the valid surfels within tolerance; two runs and a graph replay
+    bit-equal. Returns the largest float gap."""
+    import torch
+
+    from wildcat_slam_tpu_torch.ops import surfel_extract as se
+
+    got = se.extract(pts, t, valid, cfg)
+    again = se.extract(pts, t, valid, cfg)
+    g = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        se.extract(pts, t, valid, cfg)
+    torch.cuda.current_stream().wait_stream(side)
+    with torch.cuda.graph(g):
+        captured = se.extract(pts, t, valid, cfg)
+    g.replay()
+    ref = se.extract_plain(pts, t, valid, cfg)
+    torch.cuda.synchronize()
+    rv = ref["valid"]
+    n = int(rv.sum())
+    same = torch.equal(got["valid"], rv) and int(got["n_dropped"]) == int(ref["n_dropped"])
+    f64 = pts.dtype == torch.float64
+    held, equal = {}, []
+    for k in K7_FLOATS:
+        x, y = got[k][rv], ref[k][rv]
+        held[k] = (float((x.double() - y.double()).abs().max()) if n else 0.0,
+                   K7_F64_TOL if f64 else K7_F32_TOL[k])
+        if torch.equal(x, y):
+            equal.append(k)
+    repeat = _k7_same(got, again) and _k7_same(got, captured)
+    line = (f"K7 surfel_extract {label} {str(pts.dtype)[6:]}: P={pts.shape[0]} valid "
+            f"{int(valid.sum())} points, {n} surfels, n_dropped {int(ref['n_dropped'])}; "
+            f"validity and n_dropped equal: {same}; runs and graph replay bit-equal: {repeat}; "
+            + ", ".join(f"{k} {v:.2e} (limit {lim:.0e})" for k, (v, lim) in held.items())
+            + f"; bit-equal at the valid surfels: {', '.join(equal) or 'none'}")
+    print(line, flush=True)
+    if not (same and repeat and all(v <= lim for v, lim in held.values())):
+        raise AssertionError("K7 left its plain version: " + line)
+    return max(v for v, _ in held.values())
+
+
+def phase_k7(dev) -> None:
+    """K7 on :func:`k7_inputs` in float32 and float64."""
+    import torch
+
+    for label, (pts, ts, valid, cfg) in k7_inputs().items():
+        for dtype in (torch.float32, torch.float64):
+            check_k7(label, torch.as_tensor(pts, dtype=dtype, device=dev),
+                     torch.as_tensor(ts, dtype=dtype, device=dev),
+                     torch.as_tensor(valid, device=dev), cfg)
+
+
+def _k7_bound(p: int, n_levels: int, ncap: int, itemsize: int) -> tuple:
+    """K7's bound: the points (xyz, t, valid) read once (every level's keys
+    come from one read, and the levels' gathers of ~1 MB stay in the 50 MB
+    L2) and the surfels (t, center, cov 3 x 3, norm, resolution, std, valid)
+    and n_dropped written once, at 3.35 TB/s; its arithmetic (~40 operations
+    a point a level: the key and the 11 moments) at the plain f32 (or f64)
+    rate."""
+    moved = p * (4 * itemsize + 1) + ncap * (18 * itemsize + 1) + 8
+    ops = 40.0 * n_levels * p
+    return _bound(moved, ops=ops / (F32_OPS if itemsize == 4 else F64_FLOPS / 2))
+
+
+def k7_times(rec: tuple) -> dict:
+    """K7's row on the main path's recorded last-sweep inputs (float32 as
+    recorded, then float64): the kernel's times (single calls, back to back,
+    graph replays; each with the three level sorts), the level sorts' alone,
+    the plain version's, the bound; and K7's graph-replay time on
+    :func:`k7_dense`, the most valid candidates for the time order to rank."""
+    import dataclasses
+
+    import torch
+
+    from wildcat_slam_tpu_torch.ops import surfel_extract as se
+    from wildcat_slam_tpu_torch.profile_sweeps import graph_ms
+
+    pts, t, valid, cfg = rec
+    out = {}
+    for dtype in (torch.float32, torch.float64):
+        x, y = pts.to(dtype), t.to(dtype)
+        err = check_k7("main-path", x, y, valid, cfg)
+        k7 = lambda: se.extract(x, y, valid, cfg)
+        keys = se.level_keys(x, valid, cfg)
+        sorts = lambda: [torch.sort(k, stable=True) for k in keys]
+        p = se.plan(x.shape[0], cfg.max_voxels_per_sweep, cfg.max_leaves_per_sweep,
+                    cfg.max_surfels_per_sweep, cfg.max_voxel_depth + 1, x.element_size())
+        bound_ms, bound_by = _k7_bound(x.shape[0], cfg.max_voxel_depth + 1, p.ncap,
+                                       x.element_size())
+        r = dict(max_abs_err=err, ms=_time_ms(k7), device_ms=_device_ms(k7), graph_ms=graph_ms(k7),
+                 sort_ms=_time_ms(sorts), sort_device_ms=_device_ms(sorts),
+                 sort_graph_ms=graph_ms(sorts),
+                 plain_ms=_time_ms(lambda: se.extract_plain(x, y, valid, cfg)),
+                 bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+        dp, dt, dv, dcfg = k7_dense()
+        dp, dt = (torch.as_tensor(v, dtype=dtype, device=x.device) for v in (dp, dt))
+        dv = torch.as_tensor(dv, device=x.device)
+        every = se.extract_plain(dp, dt, dv, dataclasses.replace(
+            dcfg, max_surfels_per_sweep=(dcfg.max_voxel_depth + 1) * dcfg.max_leaves_per_sweep))
+        r.update(dense_n_valid=int(every["valid"].sum()),
+                 dense_graph_ms=graph_ms(lambda: se.extract(dp, dt, dv, dcfg)))
+        print(f"K7 surfel_extract main-path time {str(dtype)[6:]}: kernel with the level sorts "
+              f"{r['ms']:.4f} ms by single synchronised calls, {r['device_ms']:.4f} ms back to "
+              f"back, {r['graph_ms']:.4f} ms by graph replays; the three level sorts (torch.sort) "
+              f"alone {r['sort_ms']:.4f} ms, {r['sort_device_ms']:.4f} ms back to back, "
+              f"{r['sort_graph_ms']:.4f} ms by graph replays; plain {r['plain_ms']:.4f} ms; no "
+              f"PyTorch call computes it; workspace {se.workspace_bytes(p, x.element_size())} "
+              f"bytes a call; bound {r['bound_ms'] * 1e3:.2f} us ({r['bound_by']}), "
+              f"{r['bound_ms'] / r['graph_ms']:.2%} of the graph-replay time; on the dense "
+              f"input ({r['dense_n_valid']} valid candidates of "
+              f"{(cfg.max_voxel_depth + 1) * cfg.max_leaves_per_sweep}) "
+              f"{r['dense_graph_ms']:.4f} ms by graph replays", flush=True)
+        out[str(dtype)[6:]] = r
+    return out["float32"]
+
+
 def phase_kernels(dev) -> None:
     import numpy as np
     import torch
@@ -1358,6 +1580,9 @@ def phase_kernels(dev) -> None:
         check_factor_kernels("every factor invalid", dev, dtype, valid_share=0.0, seed=2)
         check_factor_kernels("ragged", dev, dtype, m=5001, nb=2001, mi=1001, seed=3)
         check_factor_kernels("S=8", dev, dtype, s_cap=8, m=3000, nb=1000, mi=300, seed=4)
+    # K7 on the room sweep, the tight capacities, no valid point, one voxel
+    # and a ragged P, in both dtypes
+    phase_k7(dev)
 
 
 def phase_main(dev) -> tuple:
@@ -1386,7 +1611,8 @@ def phase_main(dev) -> tuple:
     poses = np.stack([p for _, p, _ in traj])
     print(f"main: {lo.sweep_id} sweeps in {wall:.2f} s; per-sweep ms after the first: "
           f"median {np.median(steady):.2f}, p90 {np.percentile(steady, 90):.2f}; "
-          f"ATE {ate * 1e3:.3f} mm unaligned (< 20 mm); launches {launches}; sweep graph: "
+          f"ATE {ate * 1e3:.3f} mm unaligned (< 20 mm); launches {launches} (K7 "
+          f"{launches['surfel_extract'] / lo.sweep_id:.2f} a sweep); sweep graph: "
           f"{_graph_text(lo)}", flush=True)
     if not (lo.sweep_id >= 10 and np.all(np.isfinite(poses)) and ate < 0.02):
         raise AssertionError(f"main path failed: sweeps={lo.sweep_id} ATE={ate}")
@@ -1398,11 +1624,11 @@ def phase_eager(dev, main_lo, events) -> tuple:
     each feed, no graph) must equal the graph run bit for bit, in the
     trajectory and every packed output (iteration counts included). It
     records the inputs of the first K1 call and of each K2, K3 and K4 call
-    of its last sweep, and of K5's and K6's first normal equations there.
-    Returns them and the eager frontend."""
+    of its last sweep, and of K5's and K6's first normal equations and K7's
+    extraction there. Returns them and the eager frontend."""
     import numpy as np
 
-    from wildcat_slam_tpu_torch.odometry import solver
+    from wildcat_slam_tpu_torch.odometry import pipeline, solver
     from wildcat_slam_tpu_torch.ops import knn, pcg, spd
     from wildcat_slam_tpu_torch.ops import self_match as sm
 
@@ -1449,15 +1675,23 @@ def phase_eager(dev, main_lo, events) -> tuple:
                                                           nb)))
         return real_k6(sfac, cor, a2, imu_bands, gi, fm, s_cap, nb, w_interp)
 
+    real_k7 = pipeline.extract_surfels
+
+    def k7_recorder(pts, t, valid, cfg):  # the sweep's extraction (the last one stays)
+        recorded["surfel_extract"] = (pts.clone(), t.clone(), valid.clone(), cfg)
+        return real_k7(pts, t, valid, cfg)
+
     pcg.pcg_solve, knn.knn_bins, sm.self_match = pcg_recorder, bins_recorder, sm_recorder
     spd.spd_solve = spd_recorder
     solver._imu_banded_normal_eqs, solver._surfel_normal_eqs = k5_recorder, k6_recorder
+    pipeline.extract_surfels = k7_recorder
     try:
         _eager_feed(lo, events)
     finally:
         pcg.pcg_solve, knn.knn_bins, sm.self_match = real_pcg, real_bins, real_sm
         spd.spd_solve = real_spd
         solver._imu_banded_normal_eqs, solver._surfel_normal_eqs = real_k5, real_k6
+        pipeline.extract_surfels = real_k7
     same = _same_outputs(main_lo, lo)
     med = np.median(np.asarray(lo.sweep_seconds[1:]) * 1e3)
     print(f"(k) main sequence: eager process_sweep {lo.sweep_id} sweeps, per-sweep median "
@@ -1605,6 +1839,8 @@ def phase_replay(recorded: dict) -> dict:
                  f"{out['spd']['library_device_ms']:.4f} ms")
     # K5 and K6 on the main path's last sweep's first normal equations
     out.update(factor_times(recorded["imu_factor"], recorded["surfel_factor"]))
+    # K7 on the main path's last sweep's extraction
+    out["surfel_extract"] = k7_times(recorded["surfel_extract"])
     h_lm, dlam_lm, _, b_lm, _, _ = recorded["pcg"]
     for dtype in (torch.float32, torch.float64):
         a_lm, rhs = (h_lm + torch.diag(dlam_lm)).to(dtype), b_lm[:, None].to(dtype)
@@ -2888,10 +3124,18 @@ def main() -> int:
              replaces="wildcat_slam_tpu/odometry/factors.py:344",
              also_replaces="wildcat_slam_tpu/odometry/solver.py:122",
              launches=launches["surfel_factor"], **kern["surfel_factor"]),
+        # no pallas_call: XLA's fusions of extract_surfels (surfel.py:105-336);
+        # ms, device_ms and graph_ms hold the three level sorts (torch.sort),
+        # whose own times are sort_ms, sort_device_ms and sort_graph_ms
+        dict(name="surfel_extract", route="cuda",
+             source="wildcat_slam_tpu_torch/csrc/surfel_extract.cu",
+             replaces="wildcat_slam_tpu/odometry/surfel.py:105",
+             launches=launches["surfel_extract"], **kern["surfel_extract"]),
     ]
     for r in rows:
         nums = ("launches", "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms")
-        lib_ok = r["library_ms"] is None if r["name"] in ("self_match", "imu_factor") else \
+        lib_ok = r["library_ms"] is None if r["name"] in ("self_match", "imu_factor",
+                                                          "surfel_extract") else \
             math.isfinite(r["library_ms"])
         if not (r["launches"] > 0 and lib_ok and all(math.isfinite(r[k]) for k in nums)):
             raise AssertionError(f"missing or non-finite measurement: {r}")

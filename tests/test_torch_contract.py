@@ -37,7 +37,8 @@ PORT_MODULES = [
     "wildcat_slam_tpu_torch.ops.self_match", "wildcat_slam_tpu_torch.ops.spd",
     "wildcat_slam_tpu_torch.probe_spd", "wildcat_slam_tpu_torch.probe_factors",
     "wildcat_slam_tpu_torch.ops.imu_factor",
-    "wildcat_slam_tpu_torch.ops.surfel_factor", "benchmarks_torch.bench",
+    "wildcat_slam_tpu_torch.ops.surfel_factor", "wildcat_slam_tpu_torch.ops.surfel_extract",
+    "benchmarks_torch.bench",
 ]
 # JAX modules the port does not carry (ROADMAP.md, "Not to port"), and the
 # port's names of the kernels' modules

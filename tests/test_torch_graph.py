@@ -46,7 +46,7 @@ from wildcat_slam_tpu_torch.odometry import graph as graph_mod
 from wildcat_slam_tpu_torch.odometry import match as t_match_mod
 from wildcat_slam_tpu_torch.odometry import pipeline
 from wildcat_slam_tpu_torch.odometry.pipeline import WindowState
-from wildcat_slam_tpu_torch.ops import imu_factor, knn, pcg, spd, surfel_factor
+from wildcat_slam_tpu_torch.ops import imu_factor, knn, pcg, spd, surfel_extract, surfel_factor
 from wildcat_slam_tpu_torch.ops import self_match as sm
 
 torch.set_num_threads(1)
@@ -295,16 +295,17 @@ def test_launches_count_replays_not_captures():
     graph_mod.reset_counts()
     # 1, 2, 1, 0, 2 and 1 eager; the rest captured
     pcg.LAUNCHES, knn.LAUNCHES, sm.LAUNCHES, spd.LAUNCHES = 3, 4, 2, 1
-    imu_factor.LAUNCHES, surfel_factor.LAUNCHES = 5, 3
-    graph_mod.CAPTURED.update(pcg=2, knn=2, self_match=1, spd=1, imu_factor=3, surfel_factor=2)
+    imu_factor.LAUNCHES, surfel_factor.LAUNCHES, surfel_extract.LAUNCHES = 5, 3, 4
+    graph_mod.CAPTURED.update(pcg=2, knn=2, self_match=1, spd=1, imu_factor=3, surfel_factor=2,
+                              surfel_extract=2)
     # what the replays' adds leave in a device's counter (pcg, knn, knn_mxu,
-    # self_match, spd, imu_factor, surfel_factor)
-    graph_mod.replay_counter(torch.device("cpu")).add_(torch.tensor([10, 8, 0, 4, 6, 9, 7]))
+    # self_match, spd, imu_factor, surfel_factor, surfel_extract)
+    graph_mod.replay_counter(torch.device("cpu")).add_(torch.tensor([10, 8, 0, 4, 6, 9, 7, 6]))
     assert graph_mod.launches() == dict(pcg=11, knn=10, knn_mxu=0, self_match=5, spd=6,
-                                        imu_factor=11, surfel_factor=8)
+                                        imu_factor=11, surfel_factor=8, surfel_extract=8)
     graph_mod.reset_counts()
     assert graph_mod.launches() == dict(pcg=0, knn=0, knn_mxu=0, self_match=0, spd=0,
-                                        imu_factor=0, surfel_factor=0)
+                                        imu_factor=0, surfel_factor=0, surfel_extract=0)
 
 
 def test_self_match_plan_states_its_limit():

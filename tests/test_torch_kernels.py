@@ -24,7 +24,13 @@ graph replay give the same bits. K5 (imu_factor) and K6 (surfel_factor) sum
 in another order than their plain versions' einsums and products: every
 output within ``chip_smoke.FACTOR_RTOL`` (1e-4 in float32, 1e-10 in float64)
 of the plain version's largest entry, H and the IMU bands symmetric bit for
-bit, two runs and a graph replay give the same bits.
+bit, two runs and a graph replay give the same bits. K7 (surfel_extract)
+sums the moments in its plain version's order (the blocked prefix of
+``ops/dfsum.py``), and is held to the plain version in the same dtype
+(``chip_smoke.check_k7``): the surfels' validity and n_dropped equal, their
+order and floats within 1e-10 in float64 and within
+tests/test_torch_surfel.py's tolerances in float32; two runs and a graph
+replay give the same bits.
 """
 
 import importlib.util
@@ -38,7 +44,7 @@ import torch
 from wildcat_slam_tpu_torch.config import WildcatConfig
 from wildcat_slam_tpu_torch.io.synthetic import SyntheticSequence, ate_rmse
 from wildcat_slam_tpu_torch.odometry.pipeline import LidarOdometry
-from wildcat_slam_tpu_torch.ops import imu_factor, knn, pcg, spd, surfel_factor
+from wildcat_slam_tpu_torch.ops import imu_factor, knn, pcg, spd, surfel_extract, surfel_factor
 from wildcat_slam_tpu_torch.ops import self_match as sm
 
 pytestmark = pytest.mark.gpu
@@ -596,3 +602,39 @@ def test_factor_kernels_refuse_what_they_cannot_take(cuda_device):
     with pytest.raises(ValueError):
         surfel_factor.normal_eqs(sfac, cor, cs.FACTOR_A2, torch.zeros((5, 8, 12, 12),
                                  device=cuda_device), fm, fm, 301)  # nb > M
+
+
+K7_CASES = ("room", "room, tight", "every point invalid", "one voxel", "P=5001", "dense")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["float32", "float64"])
+@pytest.mark.parametrize("case", K7_CASES)
+def test_surfel_extract_kernel_matches_plain(cuda_device, dtype, case):
+    """K7 on chip_smoke.k7_inputs: the 4096-point room sweep at the small
+    and the tight configs (segment, cluster and surfel drops), no valid
+    point, every point in one voxel, P=5001, the dense floor of triangles at
+    the shipped sizes (chip_smoke.check_k7: two runs and a graph replay
+    bit-equal too)."""
+    cs = _chip_smoke()
+    pts, ts, valid, cfg = cs.k7_inputs()[case]
+    before = surfel_extract.LAUNCHES
+    cs.check_k7(case, torch.as_tensor(pts, dtype=dtype, device=cuda_device),
+                torch.as_tensor(ts, dtype=dtype, device=cuda_device),
+                torch.as_tensor(valid, device=cuda_device), cfg)
+    assert surfel_extract.LAUNCHES > before
+
+
+def test_surfel_extract_kernel_refuses_what_it_cannot_take(cuda_device):
+    cfg = WildcatConfig(max_points_per_sweep=64)
+    pts = torch.zeros((64, 3), device=cuda_device)
+    t, valid = torch.zeros(64, device=cuda_device), torch.ones(64, dtype=torch.bool,
+                                                               device=cuda_device)
+    with pytest.raises(ValueError):
+        surfel_extract.extract(pts, t.double(), valid, cfg)  # t in another dtype
+    with pytest.raises(ValueError):
+        surfel_extract.extract(pts, t, valid.to(torch.uint8), cfg)
+    with pytest.raises(ValueError):
+        surfel_extract.extract(pts.half(), t.half(), valid, cfg)
+    with pytest.raises(ValueError):
+        surfel_extract.extract(pts, t, valid, WildcatConfig(max_points_per_sweep=64,
+                                                            max_voxel_depth=8))

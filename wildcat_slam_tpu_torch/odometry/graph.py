@@ -41,9 +41,11 @@ import numpy as np
 import torch
 
 from wildcat_slam_tpu_torch.odometry.states import TensorStruct
-from wildcat_slam_tpu_torch.ops import _build, imu_factor, knn, pcg, self_match, spd, surfel_factor
+from wildcat_slam_tpu_torch.ops import (_build, imu_factor, knn, pcg, self_match, spd,
+                                        surfel_extract, surfel_factor)
 
-KERNELS = ("pcg", "knn", "knn_mxu", "self_match", "spd", "imu_factor", "surfel_factor")
+KERNELS = ("pcg", "knn", "knn_mxu", "self_match", "spd", "imu_factor", "surfel_factor",
+           "surfel_extract")
 CAPTURED: collections.Counter = collections.Counter()
 _REPLAYED = {}  # device -> (len(KERNELS),) int64 launch counter that the graphs add to
 
@@ -53,7 +55,8 @@ def wrapper_counts() -> collections.Counter:
     return collections.Counter(pcg=pcg.LAUNCHES, knn=knn.LAUNCHES, knn_mxu=knn.MXU_LAUNCHES,
                                self_match=self_match.LAUNCHES, spd=spd.LAUNCHES,
                                imu_factor=imu_factor.LAUNCHES,
-                               surfel_factor=surfel_factor.LAUNCHES)
+                               surfel_factor=surfel_factor.LAUNCHES,
+                               surfel_extract=surfel_extract.LAUNCHES)
 
 
 def replay_counter(dev: torch.device) -> torch.Tensor:
@@ -67,7 +70,7 @@ def replay_counter(dev: torch.device) -> torch.Tensor:
 def reset_counts() -> None:
     """Every launch count to 0: the wrappers', the captures' and the replays'."""
     pcg.LAUNCHES = knn.LAUNCHES = knn.MXU_LAUNCHES = self_match.LAUNCHES = spd.LAUNCHES = 0
-    imu_factor.LAUNCHES = surfel_factor.LAUNCHES = 0
+    imu_factor.LAUNCHES = surfel_factor.LAUNCHES = surfel_extract.LAUNCHES = 0
     CAPTURED.clear()
     for counter in _REPLAYED.values():
         counter.zero_()

@@ -23,15 +23,18 @@ _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("pcg.cu", "knn_bins.cu", "knn_mxu.cu", "self_match.cu", "spd_solve.cu",
-           "imu_factor.cu", "surfel_factor.cu", "sweep_graph.cu")
-HEADERS = ("lie.cuh",)  # included by the sources: part of the library's hash
+           "imu_factor.cu", "surfel_factor.cu", "surfel_extract.cu", "sweep_graph.cu")
+HEADERS = ("lie.cuh", "eigh3.cuh")  # included by the sources: part of the library's hash
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-# the factor kernels round each operation on its own, as their plain versions'
-# PyTorch operations do (no contraction into FMA; their sums' FMAs are explicit):
-# the float64 sweep then stays on the JAX package's float64 record as long as
-# the plain version does (chip_smoke (l))
-SOURCE_FLAGS = {"imu_factor.cu": ("-fmad=false",), "surfel_factor.cu": ("-fmad=false",)}
+# the factor kernels and the surfel extraction round each operation on its
+# own, as their plain versions' PyTorch operations do (no contraction into
+# FMA; the factor kernels' sums' FMAs are explicit): the float64 sweep then
+# stays on the JAX package's float64 record as long as the plain version does
+# (chip_smoke (l)). Never --use_fast_math: K7's floor(p / size) must round
+# as the plain version's
+SOURCE_FLAGS = {"imu_factor.cu": ("-fmad=false",), "surfel_factor.cu": ("-fmad=false",),
+                "surfel_extract.cu": ("-fmad=false",)}
 
 
 def flags(source: str) -> tuple:
@@ -117,6 +120,8 @@ SIGNATURES = {
                       + [_I64] * 2 + [_VP], _I32),
     "wc_surfel_factor": ([_PP, _I32] + [_VP] * 8 + [_I32] * 5 + [_F64] + [_I32] * 3
                          + [_I64] * 2 + [_VP], _I32),
+    "wc_surfel_extract": ([_I32, _PP] + [_I32] * 6 + [_PF64] + [_I32] * 3 + [_I64] * 2 + [_VP],
+                          _I32),
     "wc_graph_create": ([_PP], _I32),
     "wc_graph_add_child": ([_VP, _PP, _VP], _I32),
     "wc_graph_add_lm_loop": ([_VP, _PP, _VP, _VP, _VP, _VP, _I32], _I32),
