@@ -39,9 +39,10 @@ non-zero):
                 S=8 (FACTOR_RTOL; H and the IMU bands bit-symmetric); K7
                 (surfel_extract) in float32 and float64 on the 4096-point
                 room sweep at the small and the tight capacities, with no
-                valid point, with every point in one voxel, and at P=5001
-                (K7_F64_TOL, K7_F32_TOL; two runs and a graph replay
-                bit-equal);
+                valid point, with every point in one voxel, at P=5001, on
+                k7_dense and on k7_wide (the sort's most passes)
+                (K7_F64_TOL, K7_F32_TOL; t, centers and covariances
+                bit-equal; two runs and a graph replay bit-equal);
   4. main    -- LidarOdometry(WildcatConfig(), device="cuda") on an 8 s
                 synthetic sequence at 64k points per sweep: its first sweep
                 eager, the rest on its sweep graph (odometry/graph.py); ATE <
@@ -64,9 +65,11 @@ non-zero):
                 (library_device_ms, beside K4's device_ms); K5 and K6 in
                 both modes (the normal mode by graph replays too; K6's
                 yardstick the cross Gram b1^T b2 with the one-hot einsums it
-                replaces, K5's null); K7 in float32 and float64 (its times
-                with and without the three level sorts, the one library
-                call on its path; its yardstick null);
+                replaces, K5's null); K7 in float32 and float64 (one
+                launch: its times, its phases' split and its sort phases'
+                time by probe_extract's stamped copy, beside the yardstick
+                torch.sort(stable) of the same three levels' packed keys,
+                the calls its sort replaces; its library_ms null);
                 then K1's S-scaling table: K1 on the random S=96/192/256
                 systems, its time, iterations run, bound and share of it;
                 then each wrapper's cost (wrapper_costs): device time, time
@@ -1293,6 +1296,7 @@ K7_F64_TOL = 1e-10
 K7_F32_TOL = {"t": 1e-5, "center": 1e-5, "norm": 1e-5, "cov": 1e-7, "std": 5e-6,
               "resolution": 1e-5}
 K7_FLOATS = ("t", "center", "norm", "cov", "std", "resolution")
+K7_BIT_EQUAL = ("t", "center", "cov")  # the moments' outputs: the plain version's order
 # tests/test_torch_surfel.py's configs: "tight" fires the segment, cluster
 # and surfel drops at once
 K7_CFGS = {"small": dict(max_points_per_sweep=4096, max_surfels_per_sweep=256,
@@ -1341,12 +1345,32 @@ def k7_dense(p: int = 65536, seed: int = 11):
                                                         cluster_time_gap=1e-5)
 
 
+def k7_wide(p: int = 65536, seed: int = 13):
+    """K7's widest keys at the shipped sizes: :func:`k7_dense` with four of
+    its triangles moved to each of the eight corners of voxel.split_keys'
+    range at the finest level (cells +-(2^19 - 1) on each axis, ~105 km out),
+    so that level's keys span 60 bits and its sort takes the most passes
+    (eight of 8 bits)."""
+    import itertools
+
+    import numpy as np
+
+    pts, ts, valid, cfg = k7_dense(p, seed)
+    size = cfg.voxel_size / 2.0**cfg.max_voxel_depth
+    corners = np.array(list(itertools.product((-1.0, 1.0), repeat=3)))
+    centre = (corners * (2**19 - 1) + 0.5) * size  # the outermost cells' centres
+    tri = pts[:96].reshape(32, 3, 3)
+    moved = np.repeat(centre, 4, 0)[:, None, :] + tri - tri.mean(1, keepdims=True)
+    pts[:96] = moved.reshape(96, 3)
+    return pts, ts, valid, cfg
+
+
 def k7_inputs() -> dict:
     """K7's inputs beside the main path's, as float64 numpy arrays and a
     config: the room sweep at the small and the tight capacities, every
     point invalid, every point in one level-0 voxel (four passes 0.1 s
-    apart over a tilted patch), P=5001 (not a multiple of the tiles), and
-    :func:`k7_dense`."""
+    apart over a tilted patch), P=5001 (not a multiple of the tiles),
+    :func:`k7_dense` and :func:`k7_wide`."""
     import numpy as np
 
     from wildcat_slam_tpu_torch.config import WildcatConfig
@@ -1363,7 +1387,7 @@ def k7_inputs() -> dict:
                                     WildcatConfig(**K7_CFGS["small"])),
             "one voxel": (one, one_t, np.ones(4096, bool), WildcatConfig(**K7_CFGS["small"])),
             "P=5001": (*k7_sweep(5001, 4990), WildcatConfig(**big)),
-            "dense": k7_dense()}
+            "dense": k7_dense(), "wide": k7_wide()}
 
 
 def _k7_same(a: dict, b: dict) -> bool:
@@ -1375,8 +1399,8 @@ def _k7_same(a: dict, b: dict) -> bool:
 def check_k7(label: str, pts, t, valid, cfg) -> float:
     """K7 against its plain version on these inputs (K7_F64_TOL,
     K7_F32_TOL): the surfels' validity, time order and n_dropped equal, every
-    float at the valid surfels within tolerance; two runs and a graph replay
-    bit-equal. Returns the largest float gap."""
+    float at the valid surfels within tolerance and K7_BIT_EQUAL's bit-equal;
+    two runs and a graph replay bit-equal. Returns the largest float gap."""
     import torch
 
     from wildcat_slam_tpu_torch.ops import surfel_extract as se
@@ -1412,7 +1436,8 @@ def check_k7(label: str, pts, t, valid, cfg) -> float:
             + ", ".join(f"{k} {v:.2e} (limit {lim:.0e})" for k, (v, lim) in held.items())
             + f"; bit-equal at the valid surfels: {', '.join(equal) or 'none'}")
     print(line, flush=True)
-    if not (same and repeat and all(v <= lim for v, lim in held.values())):
+    if not (same and repeat and all(v <= lim for v, lim in held.values())
+            and all(k in equal for k in K7_BIT_EQUAL)):
         raise AssertionError("K7 left its plain version: " + line)
     return max(v for v, _ in held.values())
 
@@ -1443,51 +1468,69 @@ def _k7_bound(p: int, n_levels: int, ncap: int, itemsize: int) -> tuple:
 def k7_times(rec: tuple) -> dict:
     """K7's row on the main path's recorded last-sweep inputs (float32 as
     recorded, then float64): the kernel's times (single calls, back to back,
-    graph replays; each with the three level sorts), the level sorts' alone,
-    the plain version's, the bound; and K7's graph-replay time on
-    :func:`k7_dense`, the most valid candidates for the time order to rank."""
+    graph replays), its phases' split and its sort phases' time (a copy with
+    globaltimer stamps at its barriers, ``probe_extract``), the yardstick of
+    the sort phases (``torch.sort(stable=True)`` of the same three levels'
+    packed int64 keys, the calls K7's sort replaces), the plain version's
+    time, the bound; and K7's graph-replay time on :func:`k7_dense`, the most
+    valid candidates for the time order to rank, and on :func:`k7_wide`, the
+    most passes for the sort."""
     import dataclasses
 
     import torch
 
+    from wildcat_slam_tpu_torch import probe_extract as pe
+    from wildcat_slam_tpu_torch.ops import _build
     from wildcat_slam_tpu_torch.ops import surfel_extract as se
     from wildcat_slam_tpu_torch.profile_sweeps import graph_ms
 
     pts, t, valid, cfg = rec
+    lib, names, ptx = pe.build_traced(_build.SRC_DIR, _build.BUILD_DIR / "probe",
+                                      _build.flags("surfel_extract.cu"))
+    print(f"K7 surfel_extract ptxas: {' | '.join(ptx)}", flush=True)
     out = {}
     for dtype in (torch.float32, torch.float64):
         x, y = pts.to(dtype), t.to(dtype)
         err = check_k7("main-path", x, y, valid, cfg)
         k7 = lambda: se.extract(x, y, valid, cfg)
-        keys = se.level_keys(x, valid, cfg)
+        keys = pe.packed_level_keys(x, valid, cfg)
         sorts = lambda: [torch.sort(k, stable=True) for k in keys]
+        split = pe.stamped_split(lib, names, k7)
         p = se.plan(x.shape[0], cfg.max_voxels_per_sweep, cfg.max_leaves_per_sweep,
                     cfg.max_surfels_per_sweep, cfg.max_voxel_depth + 1, x.element_size())
         bound_ms, bound_by = _k7_bound(x.shape[0], cfg.max_voxel_depth + 1, p.ncap,
                                        x.element_size())
         r = dict(max_abs_err=err, ms=_time_ms(k7), device_ms=_device_ms(k7), graph_ms=graph_ms(k7),
-                 sort_ms=_time_ms(sorts), sort_device_ms=_device_ms(sorts),
-                 sort_graph_ms=graph_ms(sorts),
+                 sort_phases_ms=pe.sort_us(split) / 1e3, sort_library_graph_ms=graph_ms(sorts),
+                 phases_us=[[name.split(":")[0], round(a + b, 2)] for name, a, b in split],
                  plain_ms=_time_ms(lambda: se.extract_plain(x, y, valid, cfg)),
                  bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
-        dp, dt, dv, dcfg = k7_dense()
-        dp, dt = (torch.as_tensor(v, dtype=dtype, device=x.device) for v in (dp, dt))
-        dv = torch.as_tensor(dv, device=x.device)
-        every = se.extract_plain(dp, dt, dv, dataclasses.replace(
-            dcfg, max_surfels_per_sweep=(dcfg.max_voxel_depth + 1) * dcfg.max_leaves_per_sweep))
-        r.update(dense_n_valid=int(every["valid"].sum()),
-                 dense_graph_ms=graph_ms(lambda: se.extract(dp, dt, dv, dcfg)))
-        print(f"K7 surfel_extract main-path time {str(dtype)[6:]}: kernel with the level sorts "
+        for label, (dp, dt, dv, dcfg) in (("dense", k7_dense()), ("wide", k7_wide())):
+            dp, dt = (torch.as_tensor(v, dtype=dtype, device=x.device) for v in (dp, dt))
+            dv = torch.as_tensor(dv, device=x.device)
+            slots = (dcfg.max_voxel_depth + 1) * dcfg.max_leaves_per_sweep
+            every = se.extract_plain(dp, dt, dv,
+                                     dataclasses.replace(dcfg, max_surfels_per_sweep=slots))
+            fn = lambda: se.extract(dp, dt, dv, dcfg)
+            sort_ms = pe.sort_us(pe.stamped_split(lib, names, fn)) / 1e3
+            r.update({f"{label}_n_valid": int(every["valid"].sum()),
+                      f"{label}_graph_ms": graph_ms(fn), f"{label}_sort_phases_ms": sort_ms})
+        print(f"K7 surfel_extract main-path time {str(dtype)[6:]}: one launch, "
               f"{r['ms']:.4f} ms by single synchronised calls, {r['device_ms']:.4f} ms back to "
-              f"back, {r['graph_ms']:.4f} ms by graph replays; the three level sorts (torch.sort) "
-              f"alone {r['sort_ms']:.4f} ms, {r['sort_device_ms']:.4f} ms back to back, "
-              f"{r['sort_graph_ms']:.4f} ms by graph replays; plain {r['plain_ms']:.4f} ms; no "
-              f"PyTorch call computes it; workspace {se.workspace_bytes(p, x.element_size())} "
-              f"bytes a call; bound {r['bound_ms'] * 1e3:.2f} us ({r['bound_by']}), "
+              f"back, {r['graph_ms']:.4f} ms by graph replays; its sort phases (keys, ranges, "
+              f"passes) {r['sort_phases_ms']:.4f} ms, against the yardstick torch.sort(stable) of "
+              f"the three levels' packed int64 keys {r['sort_library_graph_ms']:.4f} ms by graph "
+              f"replays; phases (us, each with its barrier): "
+              + "; ".join(f"[{k}] {v:.1f}" for k, v in r["phases_us"])
+              + f"; plain {r['plain_ms']:.4f} ms; no PyTorch call computes it; workspace "
+              f"{se.workspace_bytes(p, x.element_size())} bytes a call; bound "
+              f"{r['bound_ms'] * 1e3:.2f} us ({r['bound_by']}), "
               f"{r['bound_ms'] / r['graph_ms']:.2%} of the graph-replay time; on the dense "
               f"input ({r['dense_n_valid']} valid candidates of "
               f"{(cfg.max_voxel_depth + 1) * cfg.max_leaves_per_sweep}) "
-              f"{r['dense_graph_ms']:.4f} ms by graph replays", flush=True)
+              f"{r['dense_graph_ms']:.4f} ms by graph replays (sort phases "
+              f"{r['dense_sort_phases_ms']:.4f}); on the wide input {r['wide_graph_ms']:.4f} ms "
+              f"(sort phases {r['wide_sort_phases_ms']:.4f})", flush=True)
         out[str(dtype)[6:]] = r
     return out["float32"]
 
@@ -1616,6 +1659,9 @@ def phase_main(dev) -> tuple:
           f"{_graph_text(lo)}", flush=True)
     if not (lo.sweep_id >= 10 and np.all(np.isfinite(poses)) and ate < 0.02):
         raise AssertionError(f"main path failed: sweeps={lo.sweep_id} ATE={ate}")
+    if launches["surfel_extract"] != lo.sweep_id:  # K7: one launch a call, one call a sweep
+        raise AssertionError(f"main path: {launches['surfel_extract']} K7 launches in "
+                             f"{lo.sweep_id} sweeps")
     return launches, traj, events, float(np.median(steady)), lo, seq
 
 
@@ -3125,8 +3171,8 @@ def main() -> int:
              also_replaces="wildcat_slam_tpu/odometry/solver.py:122",
              launches=launches["surfel_factor"], **kern["surfel_factor"]),
         # no pallas_call: XLA's fusions of extract_surfels (surfel.py:105-336);
-        # ms, device_ms and graph_ms hold the three level sorts (torch.sort),
-        # whose own times are sort_ms, sort_device_ms and sort_graph_ms
+        # sort_phases_ms is its sort's share of its time, sort_library_graph_ms
+        # the torch.sort calls that share replaces
         dict(name="surfel_extract", route="cuda",
              source="wildcat_slam_tpu_torch/csrc/surfel_extract.cu",
              replaces="wildcat_slam_tpu/odometry/surfel.py:105",

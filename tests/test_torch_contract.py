@@ -36,6 +36,7 @@ PORT_MODULES = [
     "wildcat_slam_tpu_torch.io.native", "wildcat_slam_tpu_torch.odometry.graph",
     "wildcat_slam_tpu_torch.ops.self_match", "wildcat_slam_tpu_torch.ops.spd",
     "wildcat_slam_tpu_torch.probe_spd", "wildcat_slam_tpu_torch.probe_factors",
+    "wildcat_slam_tpu_torch.probe_extract",
     "wildcat_slam_tpu_torch.ops.imu_factor",
     "wildcat_slam_tpu_torch.ops.surfel_factor", "wildcat_slam_tpu_torch.ops.surfel_extract",
     "benchmarks_torch.bench",

@@ -29,8 +29,8 @@ sums the moments in its plain version's order (the blocked prefix of
 ``ops/dfsum.py``), and is held to the plain version in the same dtype
 (``chip_smoke.check_k7``): the surfels' validity and n_dropped equal, their
 order and floats within 1e-10 in float64 and within
-tests/test_torch_surfel.py's tolerances in float32; two runs and a graph
-replay give the same bits.
+tests/test_torch_surfel.py's tolerances in float32, their t, centers and
+covariances bit-equal; two runs and a graph replay give the same bits.
 """
 
 import importlib.util
@@ -604,7 +604,7 @@ def test_factor_kernels_refuse_what_they_cannot_take(cuda_device):
                                  device=cuda_device), fm, fm, 301)  # nb > M
 
 
-K7_CASES = ("room", "room, tight", "every point invalid", "one voxel", "P=5001", "dense")
+K7_CASES = ("room", "room, tight", "every point invalid", "one voxel", "P=5001", "dense", "wide")
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["float32", "float64"])
@@ -613,8 +613,10 @@ def test_surfel_extract_kernel_matches_plain(cuda_device, dtype, case):
     """K7 on chip_smoke.k7_inputs: the 4096-point room sweep at the small
     and the tight configs (segment, cluster and surfel drops), no valid
     point, every point in one voxel, P=5001, the dense floor of triangles at
-    the shipped sizes (chip_smoke.check_k7: two runs and a graph replay
-    bit-equal too)."""
+    the shipped sizes, and that floor with triangles at the far corners of
+    the key range (the sort's most passes) (chip_smoke.check_k7: t, centers
+    and covariances bit-equal to the plain version's; two runs and a graph
+    replay bit-equal too)."""
     cs = _chip_smoke()
     pts, ts, valid, cfg = cs.k7_inputs()[case]
     before = surfel_extract.LAUNCHES

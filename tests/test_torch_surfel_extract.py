@@ -44,13 +44,21 @@ def test_plan_at_the_shipped_config():
                 cfg.max_surfels_per_sweep, cfg.max_voxel_depth + 1, 4)
     assert (p.threads, p.tile, p.block) == (se.THREADS, se.TILE, se.BLOCK) == (256, 1024, 128)
     assert (p.tiles_p, p.tiles_v, p.ncap) == (64, 48, 1024)
+    # the sort: a chunk a tile, 64 a level; eight passes of 8 bits for the
+    # widest key (three 20-bit fields and the invalid points' top value)
+    assert (p.chunk, p.chunks, p.passes) == (1024, 64, 8)
+    # per point and level three 64-bit keys (input order, the ping-pong's
+    # other side, sorted) and three indices (ping-pong, the permutation); per
+    # (level, chunk) 256 digits' counts; per chunk its valid count and the
+    # levels' six field bounds
+    sort = 3 * 65536 * (3 * 2 + 3) + 3 * 64 * 256 + 64 * (1 + 6 * 3)
     # per point: the segment ids and cluster-start flags of the three levels,
     # the two parent levels' ids in input order; per slot its start (and the
     # sentinel), flags and candidacy; per cluster its start (and the
     # sentinel); the tiles' counts; the candidates' validity, valid list
     # and its runs' offsets (a run a tile, and the end)
-    assert p.ints == (3 * 3 * 65536 - 65536 + 3 * 8193 + 2 * 3 * 8192 + 3 * 16385 + 2 * 3 * 64
-                      + 48 + 2 * 3 * 16384 + 49 + 2 * 3)
+    assert p.ints == sort + (3 * 3 * 65536 - 65536 + 3 * 8193 + 2 * 3 * 8192 + 3 * 16385
+                             + 2 * 3 * 64 + 48 + 2 * 3 * 16384 + 49 + 2 * 3)
     # per point and level the channels' in-block prefixes; per level and
     # channel the block prefixes' two words (512 blocks and the leading 0)
     # and the scan's second buffer; per candidate its record and time
@@ -99,9 +107,8 @@ def test_kernel_refuses_cpu_tensors():
     before = se.LAUNCHES
     pts, t, valid = torch.zeros((8, 3)), torch.zeros(8), torch.ones(8, dtype=torch.bool)
     cfg = WildcatConfig(max_points_per_sweep=8)
-    for call in (lambda: se.extract(pts, t, valid, cfg), lambda: se.level_keys(pts, valid, cfg)):
-        with pytest.raises(ValueError, match="CUDA card"):
-            call()
+    with pytest.raises(ValueError, match="CUDA card"):
+        se.extract(pts, t, valid, cfg)
     assert se.LAUNCHES == before
 
 
@@ -172,7 +179,7 @@ def test_plan_takes_the_plain_versions_prefix_block(p, block):
 def test_chip_smoke_k7_inputs_are_what_they_say(cs):
     cases = cs["k7_inputs"]()
     assert set(cases) == {"room", "room, tight", "every point invalid", "one voxel", "P=5001",
-                          "dense"}
+                          "dense", "wide"}
     pts, ts, valid, cfg = cases["one voxel"]
     cell = np.floor(pts / cfg.voxel_size)
     assert valid.all() and (cell == cell[0]).all()
@@ -181,6 +188,10 @@ def test_chip_smoke_k7_inputs_are_what_they_say(cs):
     assert pts.shape == (5001, 3) and cfg.max_points_per_sweep == 5001 and 4900 < valid.sum() < 5001
     for name, (pts, ts, valid, cfg) in cases.items():
         assert pts.shape[0] == ts.shape[0] == valid.shape[0] == cfg.max_points_per_sweep, name
+    # the wide input's finest cells reach voxel.split_keys' bounds on each axis
+    pts, ts, valid, cfg = cases["wide"]
+    cell = np.floor(pts[valid] / (cfg.voxel_size / 2**cfg.max_voxel_depth))
+    assert (cell.min(0) == -(2**19 - 1)).all() and (cell.max(0) == 2**19 - 1).all()
 
 
 def test_k7_bound_counts_the_points_of_each_level(cs):
@@ -205,3 +216,22 @@ def test_chip_smoke_dense_input_fills_the_time_order(cs):
                            torch.as_tensor(ts, dtype=torch.float32), torch.as_tensor(valid),
                            dataclasses.replace(cfg, max_surfels_per_sweep=slots))
     assert slots // 2 < int(out["valid"].sum()) < slots
+
+
+def test_probe_stamps_every_barrier_and_names_its_phases():
+    """``probe_extract`` stamps K7's start, each grid barrier and its end by
+    text edits of the source, and names each phase by the comment before
+    the barrier that ends it; its sort share sums K, B and the passes."""
+    from wildcat_slam_tpu_torch import probe_extract
+
+    with open(SOURCE) as f:
+        src = f.read()
+    traced = probe_extract.traced(src)
+    n_sync = src.count("grid.sync();")
+    stamped = "probe_clock(__LINE__, 0); grid.sync(); probe_clock(__LINE__, 1);"
+    assert traced.count(stamped) == n_sync
+    names = [name.split(":")[0] for _, name in sorted(probe_extract.labels(traced).items())[1:]]
+    assert names == ["K", "B", "sort, pass k", "sort, pass k", "1", "2", "3", "4", "5", "6",
+                     "7", "8a", "8b"]
+    split = [("K: keys", 1.0, 0.5), ("sort, pass k: placed", 2.0, 0.5), ("7: clusters", 4.0, 1.0)]
+    assert probe_extract.sort_us(split) == 4.0

@@ -2,49 +2,66 @@
 // wildcat_slam_tpu/odometry/surfel.py:104-336 (extract_surfels: no Pallas
 // kernel stands behind it). The plain version is
 // ops/surfel_extract.py:extract_plain, which issues some 1,500-2,000 small
-// kernels a sweep; here it is two launches around the library's level sorts.
+// kernels a sweep; here it is one cooperative launch (every block resident;
+// grid barriers between its phases), with its own sort of the voxel levels:
 //
-//   surfel_keys      every level's voxel key of every point (voxel.split_keys,
-//                    the invalid points pinned to 2^31 - 1, packed as
-//                    hi 2^31 + lo); the wrapper then sorts each level stably
-//                    (torch.sort, the one library call on K7's path).
-//   surfel_extract   one cooperative launch (every block resident; grid
-//                    barriers between its phases):
-//     1  the segment starts (a key unlike its predecessor's) counted per
-//        tile of kTile sorted points; the slot tables set to "absent" (P);
-//        a warp a block of the blocked prefix (below): its points' 11
-//        channels [w, q, sym6(q), t] (q about the point's cell centre), their
-//        exclusive in-block prefix and the block's total;
-//     2  the segment ids by a scan over the tiles, and each segment's first
-//        position written at its id (direct compaction: the ids of the starts
-//        ascend, so start[id] = i is _compact_positions' array without its
-//        sort); slot v_cap is the sentinel, a segment's end is the next
-//        segment's start; the parent levels' ids in input order; a block a
-//        (level, channel) for the double-float scan of the block totals;
-//     3  a thread a slot: the moments of its range, the count, mean,
-//        covariance, its eigenvalues (eigh3.cuh), the strict plane test and
-//        n > min_pts;
-//     4  a thread a slot: the hierarchy. A child slot finds its parent slot
-//        through its first point's input index; level 1 follows a big root,
-//        deeper levels a big non-planar parent;
-//     5  per point: its slot's candidacy, the time gaps, the cluster starts,
-//        counted per tile;
-//     6  the cluster ids by a scan and each cluster's first position at its id
-//        (cut at nc; slot nc is the sentinel);
-//     7  a thread a cluster: the moments of [start, max(min(next start,
-//        segment end), start)), the eigenvalues and eigenvectors, the
-//        non-strict plane test, n >= min_pts, the normal towards the origin;
-//     8  the valid candidates (level-major, L nc of them) counted per tile,
-//        then listed with their times, each tile's sorted by (t, index) in
-//        shared memory (a bitonic sort: a run of the list); the invalid ones
-//        written straight to their places after the valid ones (index
-//        order), and n_dropped;
-//     9  a warp a valid candidate, a lane a run: its place in the time order
-//        is its place in its run plus, in each other run, the entries before
-//        it (a binary search; an earlier run holds only smaller indices, so
-//        its ties come first). O(n_valid (L nc / kTile) log kTile), where a
-//        comparison of every pair would be O(n_valid^2); the first
-//        min(cap, L nc) places are written.
+//   K  the slot tables set to "absent" (P); a block a chunk of the points
+//      (kTile or more: at most kMaxChunks chunks): its valid points counted
+//      and, at every level, the minimum and maximum of each of the key's
+//      three 20-bit cell fields (voxel.split_keys' layout: x, y, z biased
+//      by 2^19) over them;
+//   B  every block: each level's key layout from the chunks' ranges (a
+//      field less its minimum, the three side by side in as many bits as
+//      their spans need; an invalid point the top value, above every valid
+//      key) and the number of LSD passes of kDigitBits its width needs;
+//      then a block a (level, chunk): the keys in input order, and the first
+//      digit counted;
+//   S  the passes (as many as the widest level needs; a level that needs
+//      fewer sits out the rest), each: a block a (level, chunk) places its
+//      points by digit (their digit's offset: the digit's count over all
+//      the chunks, exclusive over the digits, plus its count in the earlier
+//      chunks; then its rank in the chunk: within a warp by __match_any_sync
+//      and __popc in lane order, the warps' counts added in warp order), a
+//      grid barrier, then the next digit counted a chunk and a barrier. Stable
+//      by construction: no atomics, no order that depends on scheduling.
+//      Subtracting a field's minimum and narrowing it keeps the order of the
+//      packed key hi 2^31 + lo, so for cells within voxel.split_keys' range
+//      (|cell| < 2^19 on each axis) the permutation is torch.sort(stable)'s.
+//      A level's last pass writes its sorted keys and permutation;
+//   1  the segment starts (a key unlike its predecessor's) counted per tile
+//      of kTile sorted points; a warp a block of the blocked prefix (below):
+//      its points' 11 channels [w, q, sym6(q), t] (q about the point's cell
+//      centre), their exclusive in-block prefix and the block's total;
+//   2  the segment ids by a scan over the tiles, and each segment's first
+//      position written at its id (direct compaction: the ids of the starts
+//      ascend, so start[id] = i is _compact_positions' array without its
+//      sort); slot v_cap is the sentinel, a segment's end is the next
+//      segment's start; the parent levels' ids in input order; a block a
+//      (level, channel) for the double-float scan of the block totals;
+//   3  a thread a slot: the moments of its range, the count, mean,
+//      covariance, its eigenvalues (eigh3.cuh), the strict plane test and
+//      n > min_pts;
+//   4  a thread a slot: the hierarchy. A child slot finds its parent slot
+//      through its first point's input index; level 1 follows a big root,
+//      deeper levels a big non-planar parent;
+//   5  per point: its slot's candidacy, the time gaps, the cluster starts,
+//      counted per tile;
+//   6  the cluster ids by a scan and each cluster's first position at its id
+//      (cut at nc; slot nc is the sentinel);
+//   7  a thread a cluster: the moments of [start, max(min(next start,
+//      segment end), start)), the eigenvalues and eigenvectors, the
+//      non-strict plane test, n >= min_pts, the normal towards the origin;
+//   8  the valid candidates (level-major, L nc of them) counted per tile,
+//      then listed with their times, each tile's sorted by (t, index) in
+//      shared memory (a bitonic sort: a run of the list); the invalid ones
+//      written straight to their places after the valid ones (index
+//      order), and n_dropped;
+//   9  a warp a valid candidate, a lane a run: its place in the time order
+//      is its place in its run plus, in each other run, the entries before
+//      it (a binary search; an earlier run holds only smaller indices, so
+//      its ties come first). O(n_valid (L nc / kTile) log kTile), where a
+//      comparison of every pair would be O(n_valid^2); the first
+//      min(cap, L nc) places are written.
 //
 // A range's moments are the plain version's (ops/dfsum.py df_prefix and
 // df_range_sum, as the JAX package's ops/dfsum.py), in its order of
@@ -58,12 +75,13 @@
 // the card, the moments come out bit-equal; a sum more accurate than it
 // carried the float64 sweep off the JAX package's float64 record within 34
 // sweeps (chip_smoke (l)'s gate), where the plain version stays 56.
-// No float atomics, no order that depends on scheduling: the scans are
-// integer or follow that fixed order. The result is the same on every run
-// and in a graph.
-// What bounds it is latency: ~10 dependent phases over ~200 K points, the
-// gathers of the points through the sort's permutation and the eigh3 chains
-// of the slots and clusters, not its ~6 MB of traffic.
+// No atomics, no order that depends on scheduling: the scans are integer
+// or follow that fixed order. The result is the same on every run and in a
+// graph.
+// What bounds it is latency: ~20 dependent phases over ~200 K points (the
+// sort's passes among them), the gathers of the points through the sort's
+// permutation and the eigh3 chains of the slots and clusters, not its few
+// MB of traffic.
 //
 // Built with -fmad=false (ops/_build.py, SOURCE_FLAGS): each product and sum
 // rounds as the plain version's PyTorch operations do. A division by a
@@ -82,28 +100,51 @@ namespace {
 
 namespace cg = cooperative_groups;
 
+using u64 = unsigned long long;
+
 constexpr int kThreads = 256, kWarps = kThreads / 32, kPer = 4, kTile = kThreads * kPer;
 constexpr int kMaxLevels = 8, kChan = 11, kCand = 14, kBlockMax = 128;
-constexpr long long kBig = 2147483647LL;  // 2^31 - 1: the key of an invalid point
-constexpr int kBias = 1 << 19;            // voxel.split_keys' bias (20 bits an axis)
-// shared memory: a warp's block of channel values (kBlockMax x kChan; in
-// phase 8 a tile's valid candidates, their times and indices, in its place),
-// then a tile scan's counts and warp totals and a block sum's totals
+constexpr int kBias = 1 << 19;                // voxel.split_keys' bias (20 bits an axis)
+constexpr unsigned kField = (1u << 20) - 1;   // ... and its fields' mask
+constexpr int kDigitBits = 8, kDigits = 1 << kDigitBits, kMaxChunks = 256;
+static_assert(kDigits == kThreads, "the sort's scans take a thread a digit");
+// shared memory: a warp's block of channel values (kBlockMax x kChan; in the
+// sort the warps' digit counts and the digits' offsets, in phase 8 a tile's
+// valid candidates, their times and indices, in its place), the levels' key
+// layouts, then a tile scan's counts and warp totals and a block sum's totals
 constexpr int kSmemInts = kThreads + kWarps + kWarps + 1;
+constexpr int kSortInts = 2 * kWarps * kDigits + 2 * kDigits + kWarps;
 static_assert(sizeof(float) * kWarps * kBlockMax * kChan >= (sizeof(float) + sizeof(int)) * kTile,
               "a tile's candidates fit where the channel blocks were");
+static_assert(sizeof(float) * kWarps * kBlockMax * kChan >= sizeof(int) * kSortInts,
+              "the sort's counts fit where the channel blocks were");
+static_assert(kSmemInts >= 1 + 6 * kMaxLevels, "the levels' ranges fit the scan's counts");
+static_assert(sizeof(float) * kWarps * kBlockMax * kChan >=
+                  sizeof(int) * kWarps * (1 + 6 * kMaxLevels),
+              "the warps' ranges fit where the channel blocks were");
+
+// a level's key: the fields less their minima, field 0 shifted by sh0 and
+// field 1 by sh1; an invalid point's key is top, above every valid one; the
+// key's width takes `passes` LSD passes of kDigitBits (at least one)
+struct LevelKey {
+  u64 top;
+  unsigned lo[3];
+  int sh0, sh1, passes;
+};
+
 template <typename T>
 constexpr size_t smem_bytes() {
-  return sizeof(T) * kWarps * kBlockMax * kChan + sizeof(int) * kSmemInts;
+  return sizeof(T) * kWarps * kBlockMax * kChan + sizeof(LevelKey) * kMaxLevels +
+         sizeof(int) * kSmemInts;
 }
 
 // The workspace layout (int32 and values), as ops/surfel_extract.py:plan
 // sizes it.
 struct Layout {
-  long long seg, sid_in, newc, start, flags, cand, cl_start, tiles_s, tiles_c, vtiles, cval,
-      vlist, voff, totals, ints;
+  long long key0, key1, keys, idx0, idx1, perm, hist, part, seg, sid_in, newc, start, flags,
+      cand, cl_start, tiles_s, tiles_c, vtiles, cval, vlist, voff, totals, ints;
   long long inb, bph, bpl, sch, scl, cands, vt, values;
-  int blk, nb, tiles_p, tiles_v, ncap;
+  int blk, nb, tiles_p, tiles_v, ncap, chunk, chunks;
 };
 
 Layout layout(int p, int v_cap, int nc, int cap, int levels) {
@@ -115,7 +156,21 @@ Layout layout(int p, int v_cap, int nc, int cap, int levels) {
   z.tiles_p = (p + kTile - 1) / kTile;
   z.tiles_v = (int)((lnc + kTile - 1) / kTile);
   z.ncap = (int)(cap < lnc ? cap : lnc);
+  z.chunk = (p + kMaxChunks * kTile - 1) / (kMaxChunks * kTile) * kTile;
+  z.chunks = (p + z.chunk - 1) / z.chunk;
   long long o = 0;
+  // the sort: the digits' counts, a row of kDigits a (level, chunk), first
+  // (16-byte aligned); 64-bit keys (two ints each) in input order and
+  // ping-pong, and the sorted ones; the points' indices of the ping-pong and
+  // the permutation; the chunks' valid counts and ranges (1 + 6 L each)
+  z.hist = o, o += (long long)levels * z.chunks * kDigits;
+  z.key0 = o, o += 2 * lp;
+  z.key1 = o, o += 2 * lp;
+  z.keys = o, o += 2 * lp;
+  z.idx0 = o, o += lp;
+  z.idx1 = o, o += lp;
+  z.perm = o, o += lp;
+  z.part = o, o += (long long)z.chunks * (1 + 6 * levels);
   z.seg = o, o += lp;
   z.sid_in = o, o += (long long)(levels - 1) * p;
   z.newc = o, o += lp;
@@ -150,8 +205,7 @@ template <typename T>
 struct Params {
   const T* pts;
   const T* t;
-  const long long* keys[kMaxLevels];  // each level's keys, sorted
-  const long long* perm[kMaxLevels];  // the sort's permutation
+  const unsigned char* valid;
   int* iw;
   T* cw;
   T *o_t, *o_center, *o_cov, *o_norm, *o_res, *o_std;
@@ -170,25 +224,58 @@ __device__ __forceinline__ void cell_of(const T* q, T inv, int* cell) {
   for (int d = 0; d < 3; ++d) cell[d] = (int)floor(q[d] * inv);
 }
 
+// a point's three key fields at one level: its cell biased by 2^19, 20 bits
+// an axis (voxel.split_keys packs them as hi = f0 2^10 + f1 / 2^10, lo =
+// (f1 mod 2^10) 2^20 + f2, so hi 2^31 + lo orders as (f0, f1, f2))
+template <typename T>
+__device__ __forceinline__ void key_fields(const T* q, T inv, unsigned* f) {
+  int cell[3];
+  cell_of(q, inv, cell);
+#pragma unroll
+  for (int d = 0; d < 3; ++d) f[d] = ((unsigned)cell[d] + kBias) & kField;
+}
+
+// point k's key at one level
+template <typename T>
+__device__ __forceinline__ u64 point_key(const Params<T>& a, const LevelKey& lk, int l, int k) {
+  if (!a.valid[k]) return lk.top;
+  unsigned f[3];
+  key_fields(a.pts + 3LL * k, a.inv[l], f);
+  return ((u64)(f[0] - lk.lo[0]) << lk.sh0) | ((u64)(f[1] - lk.lo[1]) << lk.sh1) |
+         (u64)(f[2] - lk.lo[2]);
+}
+
+// level l's sorted keys and permutation (the sort's last pass wrote them)
+template <typename T>
+__device__ __forceinline__ const u64* sorted_keys(const Params<T>& a, int l) {
+  return reinterpret_cast<const u64*>(a.iw + a.z.keys) + (long long)l * a.p;
+}
+template <typename T>
+__device__ __forceinline__ const int* sorted_perm(const Params<T>& a, int l) {
+  return a.iw + a.z.perm + (long long)l * a.p;
+}
+
 // ---- moments: the plain version's blocked prefix of the 11 channels
 
-// valid_s of sorted position k at level l: its hi key is not the pin (an
+// valid_s of sorted position k at level l: its key is not the top (an
 // invalid point's is)
 template <typename T>
-__device__ __forceinline__ bool valid_sorted(const Params<T>& a, int l, int k) {
-  return (a.keys[l][k] >> 31) != kBig;
+__device__ __forceinline__ bool valid_sorted(const Params<T>& a, const LevelKey* lk, int l,
+                                             int k) {
+  return sorted_keys(a, l)[k] != lk[l].top;
 }
 
 // sorted point k's channels at level l: [w, q, sym6(q), t] if it is valid,
 // else zeros
 template <typename T>
-__device__ __forceinline__ void point_channels(const Params<T>& a, int l, int k, T* x) {
-  if (!valid_sorted(a, l, k)) {
+__device__ __forceinline__ void point_channels(const Params<T>& a, const LevelKey* lk, int l,
+                                               int k, T* x) {
+  if (!valid_sorted(a, lk, l, k)) {
 #pragma unroll
     for (int c = 0; c < kChan; ++c) x[c] = T(0);
     return;
   }
-  const long long i = a.perm[l][k];
+  const long long i = sorted_perm(a, l)[k];
   const T* q = a.pts + 3 * i;
   int cell[3];
   cell_of(q, a.inv[l], cell);
@@ -304,7 +391,191 @@ __device__ __forceinline__ int tile_ranks(const bool* f, int* rank, int* sm) {
 
 template <typename T>
 __device__ __forceinline__ bool is_start(const Params<T>& a, int l, int k) {
-  return k == 0 || a.keys[l][k] != a.keys[l][k - 1];
+  const u64* keys = sorted_keys(a, l);
+  return k == 0 || keys[k] != keys[k - 1];
+}
+
+// ---- the sort
+
+// The sort's shared memory: the warps' counts of a round's digits (zero
+// between rounds), their offsets, each digit's running offset and the
+// digits' totals with their scan's warp totals.
+struct SortSmem {
+  int *wcnt, *pre, *run, *tot, *scan;
+  __device__ explicit SortSmem(int* s)
+      : wcnt(s), pre(s + kWarps * kDigits), run(s + 2 * kWarps * kDigits),
+        tot(s + 2 * kWarps * kDigits + kDigits), scan(s + 2 * kWarps * kDigits + 2 * kDigits) {}
+};
+
+// One round of kThreads elements in thread order, this thread's with digit d
+// (kDigits: none): its place among the elements of digit d, after run[d]
+// (the earlier rounds' and the offset); run[d] moves past the round's. The
+// warp's peers by __match_any_sync, their count before this lane by __popc;
+// a thread a digit then adds the warps' counts in warp order. Two
+// __syncthreads; wcnt is zero on entry and on return.
+__device__ __forceinline__ int round_place(int d, const SortSmem& s) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const unsigned peers = __match_any_sync(0xffffffffu, d);
+  const int before = __popc(peers & ((1u << lane) - 1u));
+  if (d < kDigits && before == 0) s.wcnt[warp * kDigits + d] = __popc(peers);
+  __syncthreads();
+  int acc = s.run[threadIdx.x];
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) {
+    const int i = w * kDigits + threadIdx.x;
+    const int c = s.wcnt[i];
+    s.wcnt[i] = 0;
+    s.pre[i] = acc;
+    acc += c;
+  }
+  s.run[threadIdx.x] = acc;
+  __syncthreads();
+  return d < kDigits ? s.pre[warp * kDigits + d] + before : 0;
+}
+
+// Each level's key layout from the chunks' valid counts and field ranges
+// (every block computes the same, into lk); returns the most passes a level
+// needs.
+template <typename T>
+__device__ __forceinline__ int level_keys(const Params<T>& a, LevelKey* lk, int* sm) {
+  const Layout& z = a.z;
+  const int L = a.levels, per = 1 + 6 * L, lane = threadIdx.x & 31;
+  // a warp a value: the valid points' count (a sum), a field's minimum or
+  // maximum over the chunks
+  for (int j = threadIdx.x >> 5; j < per; j += kWarps) {
+    const bool mx = j > 0 && (j - 1) % 2 == 1;
+    unsigned v = j == 0 || mx ? 0u : 0xffffffffu;
+#pragma unroll 4
+    for (int c = lane; c < z.chunks; c += 32) {
+      const unsigned x = (unsigned)a.iw[z.part + (long long)c * per + j];
+      v = j == 0 ? v + x : (mx ? max(v, x) : min(v, x));
+    }
+    v = j == 0 ? __reduce_add_sync(0xffffffffu, v)
+               : (mx ? __reduce_max_sync(0xffffffffu, v) : __reduce_min_sync(0xffffffffu, v));
+    if (lane == 0) sm[j] = (int)v;
+  }
+  __syncthreads();
+  if (threadIdx.x < L) {
+    const int l = threadIdx.x, nv = sm[0];
+    unsigned span[3];
+    int w[3];
+#pragma unroll
+    for (int d = 0; d < 3; ++d) {
+      const unsigned lo = (unsigned)sm[1 + 6 * l + 2 * d], hi = (unsigned)sm[2 + 6 * l + 2 * d];
+      lk[l].lo[d] = nv > 0 ? lo : 0u;
+      span[d] = nv > 0 ? hi - lo : 0u;
+      w[d] = 32 - __clz(span[d]);
+    }
+    lk[l].sh1 = w[2], lk[l].sh0 = w[1] + w[2];
+    const u64 widest = ((u64)span[0] << lk[l].sh0) | ((u64)span[1] << lk[l].sh1) | span[2];
+    lk[l].top = widest + 1;
+    const int bits = 64 - __clzll(nv < a.p ? widest + 1 : widest);
+    lk[l].passes = bits > kDigitBits ? (bits + kDigitBits - 1) / kDigitBits : 1;
+  }
+  __syncthreads();
+  int passes = 0;
+  for (int l = 0; l < L; ++l) passes = max(passes, lk[l].passes);
+  return passes;
+}
+
+// Pass k's digits of level l's chunk c counted into hist (pass 0: the keys
+// computed from the points and written in input order)
+template <typename T>
+__device__ __forceinline__ void count_chunk(const Params<T>& a, const LevelKey& lk, int l, int c,
+                                            int k, const SortSmem& s) {
+  const Layout& z = a.z;
+  const int p = a.p, k0 = c * z.chunk, k1 = min(p, k0 + z.chunk), shift = k * kDigitBits;
+  u64* key0 = reinterpret_cast<u64*>(a.iw + z.key0) + (long long)l * p;
+  const u64* src = reinterpret_cast<const u64*>(a.iw + (k % 2 == 0 ? z.key0 : z.key1)) +
+                   (long long)l * p;
+  s.run[threadIdx.x] = 0;
+  for (int t0 = k0; t0 < k1; t0 += kTile) {
+    int dig[kPer];
+#pragma unroll
+    for (int u = 0; u < kPer; ++u) {
+      const int e = t0 + u * kThreads + threadIdx.x;
+      dig[u] = kDigits;
+      if (e < k1) {
+        u64 key;
+        if (k == 0)
+          key = point_key(a, lk, l, e), key0[e] = key;
+        else
+          key = src[e];
+        dig[u] = (int)((key >> shift) & (kDigits - 1));
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kPer; ++u) round_place(dig[u], s);
+  }
+  a.iw[z.hist + ((long long)l * z.chunks + c) * kDigits + threadIdx.x] = s.run[threadIdx.x];
+}
+
+// Pass k of level l's chunk c: its points placed by digit k (into the sorted
+// keys and permutation on the level's last pass)
+template <typename T>
+__device__ __forceinline__ void place_chunk(const Params<T>& a, const LevelKey& lk, int l, int c,
+                                            int k, const SortSmem& s) {
+  const Layout& z = a.z;
+  const int p = a.p, k0 = c * z.chunk, k1 = min(p, k0 + z.chunk), shift = k * kDigitBits;
+  const bool last = k == lk.passes - 1;
+  const long long lo = (long long)l * p;
+  const u64* src = reinterpret_cast<const u64*>(a.iw + (k % 2 == 0 ? z.key0 : z.key1)) + lo;
+  const int* isrc = a.iw + (k % 2 == 0 ? z.idx0 : z.idx1) + lo;
+  u64* dst = reinterpret_cast<u64*>(a.iw + (last ? z.keys : k % 2 == 0 ? z.key1 : z.key0)) + lo;
+  int* idst = a.iw + (last ? z.perm : k % 2 == 0 ? z.idx1 : z.idx0) + lo;
+  // the digit's offset: its count over the level's chunks, exclusive over
+  // the digits, plus its count in the chunks before c. A warp sums every
+  // kWarps-th chunk's counts, a lane 8 digits (two 16-byte loads a chunk),
+  // then a thread a digit adds the warps' sums (in the rounds' arrays: the
+  // block's last item may still be reading them)
+  __syncthreads();
+  {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int4* h = reinterpret_cast<const int4*>(a.iw + z.hist) +
+                    (long long)l * z.chunks * (kDigits / 4) + 2 * lane;
+    int all[8] = {}, before[8] = {};
+#pragma unroll 4
+    for (int j = warp; j < z.chunks; j += kWarps) {
+      const int4 x = h[(long long)j * (kDigits / 4)], y = h[(long long)j * (kDigits / 4) + 1];
+      const int v[8] = {x.x, x.y, x.z, x.w, y.x, y.y, y.z, y.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i) all[i] += v[i], before[i] += j < c ? v[i] : 0;
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      s.pre[warp * kDigits + 8 * lane + i] = all[i],
+          s.wcnt[warp * kDigits + 8 * lane + i] = before[i];
+  }
+  __syncthreads();
+  int before = 0, all = 0;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) {
+    const int i = w * kDigits + threadIdx.x;
+    all += s.pre[i], before += s.wcnt[i];
+    s.wcnt[i] = 0;
+  }
+  s.tot[threadIdx.x] = all;
+  wc::block_exclusive_scan<kWarps>(s.tot, kDigits, s.scan);
+  s.run[threadIdx.x] = s.tot[threadIdx.x] + before;
+  for (int t0 = k0; t0 < k1; t0 += kTile) {
+    u64 key[kPer];
+    int idx[kPer], dig[kPer];
+#pragma unroll
+    for (int u = 0; u < kPer; ++u) {
+      const int e = t0 + u * kThreads + threadIdx.x;
+      dig[u] = kDigits;
+      if (e < k1) {
+        key[u] = src[e];
+        idx[u] = k == 0 ? e : isrc[e];
+        dig[u] = (int)((key[u] >> shift) & (kDigits - 1));
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kPer; ++u) {
+      const int r = round_place(dig[u], s);
+      if (dig[u] < kDigits) dst[r] = key[u], idst[r] = idx[u];
+    }
+  }
 }
 
 // candidate m's record to output place r
@@ -341,30 +612,13 @@ __device__ __forceinline__ bool precedes(T tx, int mx, T ty, int my) {
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads) surfel_keys(const T* pts, const unsigned char* valid,
-                                                        long long* keys, int p, int levels,
-                                                        Params<T> a) {
-  const long long n = (long long)levels * p;
-  for (long long i = blockIdx.x * (long long)kThreads + threadIdx.x; i < n;
-       i += (long long)gridDim.x * kThreads) {
-    const int l = (int)(i / p), k = (int)(i % p);
-    int cell[3];
-    cell_of(pts + 3LL * k, a.inv[l], cell);
-    // voxel.split_keys
-    const unsigned c0 = (unsigned)cell[0] + kBias, c1 = (unsigned)cell[1] + kBias,
-                   c2 = (unsigned)cell[2] + kBias;
-    const long long hi = (int)((c0 << 10) | (unsigned)((int)c1 >> 10)),
-                    lo = (int)(((c1 & 1023u) << 20) | c2);
-    keys[i] = (valid[k] ? hi : kBig) * (1LL << 31) + (valid[k] ? lo : kBig);
-  }
-}
-
-template <typename T>
 __global__ void __launch_bounds__(kThreads) surfel_extract(Params<T> a) {
   extern __shared__ __align__(16) unsigned char smem[];
   T* xs = reinterpret_cast<T*>(smem) + (threadIdx.x >> 5) * kBlockMax * kChan;
-  int* sm = reinterpret_cast<int*>(smem + sizeof(T) * kWarps * kBlockMax * kChan);
+  LevelKey* lk = reinterpret_cast<LevelKey*>(smem + sizeof(T) * kWarps * kBlockMax * kChan);
+  int* sm = reinterpret_cast<int*>(lk + kMaxLevels);
   int* red = sm + kThreads + kWarps;
+  const SortSmem ss(reinterpret_cast<int*>(smem));
   cg::grid_group grid = cg::this_grid();
   const Layout& z = a.z;
   int* iw = a.iw;
@@ -375,9 +629,87 @@ __global__ void __launch_bounds__(kThreads) surfel_extract(Params<T> a) {
   const int gwarp = (int)(gtid >> 5), nwarps = (int)(gthreads >> 5);
   const int tiles = L * z.tiles_p;
 
-  // 1: the slot tables to "absent"; the segment starts counted per tile
+  // K: the slot tables to "absent"; a block a chunk: its valid points
+  // counted, each level's key fields' minima and maxima over them
   for (long long i = gtid; i < (long long)L * (v_cap + 1); i += gthreads) iw[z.start + i] = p;
   for (long long i = gtid; i < (long long)L * (nc + 1); i += gthreads) iw[z.cl_start + i] = p;
+  int* wred = reinterpret_cast<int*>(smem);  // the warps' counts and bounds (kWarps x per)
+  for (int c = blockIdx.x; c < z.chunks; c += gridDim.x) {
+    const int k0 = c * z.chunk, k1 = min(p, k0 + z.chunk), per = 1 + 6 * L;
+    unsigned nv = 0, lo[kMaxLevels][3], hi[kMaxLevels][3];
+#pragma unroll
+    for (int l = 0; l < kMaxLevels; ++l)
+#pragma unroll
+      for (int d = 0; d < 3; ++d) lo[l][d] = 0xffffffffu, hi[l][d] = 0u;
+#pragma unroll 4
+    for (int k = k0 + tid; k < k1; k += kThreads)
+      if (a.valid[k]) {
+        const T* q = a.pts + 3LL * k;
+        const T x[3] = {q[0], q[1], q[2]};
+        nv += 1;
+#pragma unroll
+        for (int l = 0; l < kMaxLevels; ++l)
+          if (l < L) {
+            unsigned f[3];
+            key_fields(x, a.inv[l], f);
+#pragma unroll
+            for (int d = 0; d < 3; ++d)
+              lo[l][d] = min(lo[l][d], f[d]), hi[l][d] = max(hi[l][d], f[d]);
+          }
+      }
+    // the warp's count, minima and maxima (part's order), then the block's
+    // over the warps in warp order
+    const int w0 = (tid >> 5) * per;
+    nv = __reduce_add_sync(0xffffffffu, nv);
+    if (lane == 0) wred[w0] = (int)nv;
+#pragma unroll
+    for (int l = 0; l < kMaxLevels; ++l)
+      if (l < L)
+#pragma unroll
+        for (int d = 0; d < 3; ++d) {
+          const unsigned m = __reduce_min_sync(0xffffffffu, lo[l][d]),
+                         M = __reduce_max_sync(0xffffffffu, hi[l][d]);
+          if (lane == 0)
+            wred[w0 + 1 + 6 * l + 2 * d] = (int)m, wred[w0 + 2 + 6 * l + 2 * d] = (int)M;
+        }
+    __syncthreads();
+    for (int j = tid; j < per; j += kThreads) {
+      unsigned v = (unsigned)wred[j];
+      for (int w = 1; w < kWarps; ++w) {
+        const unsigned y = (unsigned)wred[w * per + j];
+        v = j == 0 ? v + y : ((j - 1) % 2 == 0 ? min(v, y) : max(v, y));
+      }
+      iw[z.part + (long long)c * per + j] = (int)v;
+    }
+    __syncthreads();
+  }
+  grid.sync();
+
+  // B: the levels' key layouts; a block a (level, chunk): its keys in input
+  // order, their first digit counted
+  const int passes = level_keys(a, lk, sm);
+  for (int i = tid; i < kWarps * kDigits; i += kThreads) ss.wcnt[i] = 0;
+  __syncthreads();
+  for (int item = blockIdx.x; item < L * z.chunks; item += gridDim.x)
+    count_chunk(a, lk[item / z.chunks], item / z.chunks, item % z.chunks, 0, ss);
+  grid.sync();
+
+  for (int k = 0; k < passes; ++k) {
+    if (k > 0) {
+      // sort, pass k: the digits counted a chunk
+      for (int item = blockIdx.x; item < L * z.chunks; item += gridDim.x)
+        if (k < lk[item / z.chunks].passes)
+          count_chunk(a, lk[item / z.chunks], item / z.chunks, item % z.chunks, k, ss);
+      grid.sync();
+    }
+    // sort, pass k: the points placed by their digit
+    for (int item = blockIdx.x; item < L * z.chunks; item += gridDim.x)
+      if (k < lk[item / z.chunks].passes)
+        place_chunk(a, lk[item / z.chunks], item / z.chunks, item % z.chunks, k, ss);
+    grid.sync();
+  }
+
+  // 1: the segment starts counted per tile
   for (int item = blockIdx.x; item < tiles; item += gridDim.x) {
     const int l = item / z.tiles_p, k0 = (item % z.tiles_p) * kTile + tid * kPer;
     int c = 0;
@@ -392,11 +724,13 @@ __global__ void __launch_bounds__(kThreads) surfel_extract(Params<T> a) {
   // (four interleaved accumulators, added in turn)
   for (int item = gwarp; item < L * z.nb; item += nwarps) {
     const int l = item / z.nb, b = item % z.nb, k0 = b * z.blk;
-    for (int j = lane; j < z.blk; j += 32) point_channels(a, l, k0 + j, xs + j * kChan);
+#pragma unroll 4
+    for (int j = lane; j < z.blk; j += 32) point_channels(a, lk, l, k0 + j, xs + j * kChan);
     __syncwarp();
     if (lane < kChan) {
       T* inb = a.cw + z.inb + ((long long)l * p + k0) * kChan + lane;
       T run = T(0), acc[4] = {T(0), T(0), T(0), T(0)};
+#pragma unroll 8
       for (int j = 0; j < z.blk; ++j) {
         const T x = xs[j * kChan + lane];
         inb[(long long)j * kChan] = run;
@@ -428,19 +762,27 @@ __global__ void __launch_bounds__(kThreads) surfel_extract(Params<T> a) {
       const int sid = off + rank[u] + (f[u] ? 1 : 0) - 1;
       iw[z.seg + (long long)l * p + k] = sid;
       if (f[u] && sid <= v_cap) iw[z.start + (long long)l * (v_cap + 1) + sid] = k;
-      if (l < L - 1) iw[z.sid_in + (long long)l * p + a.perm[l][k]] = sid;
+      if (l < L - 1) iw[z.sid_in + (long long)l * p + sorted_perm(a, l)[k]] = sid;
       if (k == p - 1)  // the invalid points, if any, are the last segment
-        iw[z.totals + l] = sid + 1 - (valid_sorted(a, l, k) ? 0 : 1);
+        iw[z.totals + l] = sid + 1 - (valid_sorted(a, lk, l, k) ? 0 : 1);
     }
   }
-  // ... and a block a (level, channel): dfsum.df_cumsum of the block totals,
+  // ... and a block a (level, channel), from the last block down (the first
+  // ones hold the tiles above): dfsum.df_cumsum of the block totals,
   // Hillis-Steele, between the block prefix (from its entry 1) and a second
-  // buffer; entry 0 is 0
-  for (int item = blockIdx.x; item < L * kChan; item += gridDim.x) {
+  // buffer, in shared memory where the four arrays fit; entry 0 is 0
+  for (int item = gridDim.x - 1 - blockIdx.x; item >= 0 && item < L * kChan; item += gridDim.x) {
     T* h0 = a.cw + z.bph + (long long)item * (z.nb + 1) + 1;
     T* l0 = a.cw + z.bpl + (long long)item * (z.nb + 1) + 1;
-    T *sh = h0, *sl = l0, *dh = a.cw + z.sch + (long long)item * z.nb,
-      *dl = a.cw + z.scl + (long long)item * z.nb;
+    const bool fits = 4 * z.nb <= kWarps * kBlockMax * kChan;
+    T* buf = reinterpret_cast<T*>(smem);
+    T *sh = fits ? buf : h0, *sl = fits ? buf + z.nb : l0,
+      *dh = fits ? buf + 2 * z.nb : a.cw + z.sch + (long long)item * z.nb,
+      *dl = fits ? buf + 3 * z.nb : a.cw + z.scl + (long long)item * z.nb;
+    if (fits) {
+      for (int i = tid; i < z.nb; i += kThreads) sh[i] = h0[i], sl[i] = l0[i];
+      __syncthreads();
+    }
     for (int off = 1; off < z.nb; off <<= 1) {
       for (int i = tid; i < z.nb; i += kThreads) {
         if (i < off)
@@ -486,7 +828,7 @@ __global__ void __launch_bounds__(kThreads) surfel_extract(Params<T> a) {
     int cl = l, cj = (int)(item % v_cap);
     while (ok && cl > 0) {
       const int s = iw[z.start + (long long)cl * (v_cap + 1) + cj];
-      const long long i0 = a.perm[cl][s < p - 1 ? s : p - 1];
+      const int i0 = sorted_perm(a, cl)[s < p - 1 ? s : p - 1];
       const int ps = iw[z.sid_in + (long long)(cl - 1) * p + i0];
       if (ps >= v_cap) {
         ok = false;
@@ -510,8 +852,8 @@ __global__ void __launch_bounds__(kThreads) surfel_extract(Params<T> a) {
       if (k >= p) break;
       const int sid = iw[z.seg + (long long)l * p + k];
       bool nf = false;
-      if (sid < v_cap && iw[z.cand + (long long)l * v_cap + sid] && valid_sorted(a, l, k)) {
-        const long long* perm = a.perm[l];
+      if (sid < v_cap && iw[z.cand + (long long)l * v_cap + sid] && valid_sorted(a, lk, l, k)) {
+        const int* perm = sorted_perm(a, l);
         nf = k == 0 || is_start(a, l, k) || (a.t[perm[k]] - a.t[perm[k - 1]]) > a.gap;
       }
       iw[z.newc + (long long)l * p + k] = nf;
@@ -557,7 +899,7 @@ __global__ void __launch_bounds__(kThreads) surfel_extract(Params<T> a) {
     const int lim = nx < se ? nx : se;
     T mean[3], cov[9], vals[3], vecs[9], t_sum;
     const T n = range_moments(a, l, s, lim > s ? lim : s, mean, cov, t_sum);
-    const T* q = a.pts + 3 * a.perm[l][s];
+    const T* q = a.pts + 3LL * sorted_perm(a, l)[s];
     int cell[3];
     cell_of(q, a.inv[l], cell);
     T center[3];
@@ -688,8 +1030,11 @@ __global__ void __launch_bounds__(kThreads) surfel_extract(Params<T> a) {
 int g_resident[2][16];
 
 template <typename T>
-int launch(int mode, void* const* ptr, int n_ptr, int p, int v_cap, int nc, int cap, int levels,
+int launch(void* const* ptr, int n_ptr, int p, int v_cap, int nc, int cap, int levels,
            const double* reals, cudaStream_t st) {
+  // pts, t, valid, the two workspaces, then t, center, cov, norm,
+  // resolution, std, valid, n_dropped
+  if (n_ptr != 13) return (int)cudaErrorInvalidValue;
   Params<T> a = {};
   a.p = p, a.v_cap = v_cap, a.nc = nc, a.cap = cap, a.levels = levels;
   for (int l = 0; l < levels; ++l) {
@@ -698,24 +1043,10 @@ int launch(int mode, void* const* ptr, int n_ptr, int p, int v_cap, int nc, int 
   }
   a.thr = (T)reals[levels], a.likeness = (T)reals[levels + 1], a.gap = (T)reals[levels + 2];
   a.min_pts = (T)reals[levels + 3];
-  if (mode == 0) {  // pts, valid, keys (L, P)
-    if (n_ptr != 3) return (int)cudaErrorInvalidValue;
-    const long long n = (long long)levels * p;
-    const int blocks = (int)((n + kThreads - 1) / kThreads < 4096 ? (n + kThreads - 1) / kThreads
-                                                                     : 4096);
-    surfel_keys<T><<<blocks, kThreads, 0, st>>>((const T*)ptr[0], (const unsigned char*)ptr[1],
-                                                (long long*)ptr[2], p, levels, a);
-    return (int)cudaGetLastError();
-  }
-  // pts, t, the sorted keys (which carry the validity) and the permutation
-  // of each level, the two workspaces, then t, center, cov, norm,
-  // resolution, std, valid, n_dropped
-  if (n_ptr != 2 + 2 * levels + 2 + 8) return (int)cudaErrorInvalidValue;
   int i = 0;
   a.pts = (const T*)ptr[i++];
   a.t = (const T*)ptr[i++];
-  for (int l = 0; l < levels; ++l) a.keys[l] = (const long long*)ptr[i++];
-  for (int l = 0; l < levels; ++l) a.perm[l] = (const long long*)ptr[i++];
+  a.valid = (const unsigned char*)ptr[i++];
   a.iw = (int*)ptr[i++];
   a.cw = (T*)ptr[i++];
   a.o_t = (T*)ptr[i++], a.o_center = (T*)ptr[i++], a.o_cov = (T*)ptr[i++];
@@ -735,22 +1066,20 @@ int launch(int mode, void* const* ptr, int n_ptr, int p, int v_cap, int nc, int 
 
 }  // namespace
 
-// mode 0: the keys; mode 1: the cooperative pass. reals: the levels' voxel
-// sizes, then the plane threshold, the plane likeness, the cluster time gap
-// and min_points_per_plane. ints and values are the workspaces' lengths
+// One launch of K7. reals: the levels' voxel sizes, then the plane
+// threshold, the plane likeness, the cluster time gap and
+// min_points_per_plane. ints and values are the workspaces' lengths
 // (ops/surfel_extract.py:plan), checked against the layout; tile is kTile.
-extern "C" int wc_surfel_extract(int mode, void* const* ptr, int n_ptr, int p, int v_cap, int nc,
-                                 int cap, int levels, const double* reals, int itemsize,
-                                 int threads, int tile, long long ints, long long values,
-                                 void* stream) {
-  if ((mode != 0 && mode != 1) || p < 1 || v_cap < 1 || nc < 1 || cap < 1 || levels < 1 ||
-      levels > kMaxLevels || (itemsize != 4 && itemsize != 8) || threads != kThreads ||
-      tile != kTile || (long long)levels * nc * kCand >= (1LL << 31) ||
-      (long long)levels * p >= (1LL << 31))
+extern "C" int wc_surfel_extract(void* const* ptr, int n_ptr, int p, int v_cap, int nc, int cap,
+                                 int levels, const double* reals, int itemsize, int threads,
+                                 int tile, long long ints, long long values, void* stream) {
+  if (p < 1 || v_cap < 1 || nc < 1 || cap < 1 || levels < 1 || levels > kMaxLevels ||
+      (itemsize != 4 && itemsize != 8) || threads != kThreads || tile != kTile ||
+      (long long)levels * nc * kCand >= (1LL << 31) || (long long)levels * p >= (1LL << 31))
     return (int)cudaErrorInvalidValue;
   const Layout z = layout(p, v_cap, nc, cap, levels);
   if (ints != z.ints || values != z.values) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return itemsize == 4 ? launch<float>(mode, ptr, n_ptr, p, v_cap, nc, cap, levels, reals, st)
-                       : launch<double>(mode, ptr, n_ptr, p, v_cap, nc, cap, levels, reals, st);
+  return itemsize == 4 ? launch<float>(ptr, n_ptr, p, v_cap, nc, cap, levels, reals, st)
+                       : launch<double>(ptr, n_ptr, p, v_cap, nc, cap, levels, reals, st);
 }

@@ -120,8 +120,7 @@ SIGNATURES = {
                       + [_I64] * 2 + [_VP], _I32),
     "wc_surfel_factor": ([_PP, _I32] + [_VP] * 8 + [_I32] * 5 + [_F64] + [_I32] * 3
                          + [_I64] * 2 + [_VP], _I32),
-    "wc_surfel_extract": ([_I32, _PP] + [_I32] * 6 + [_PF64] + [_I32] * 3 + [_I64] * 2 + [_VP],
-                          _I32),
+    "wc_surfel_extract": ([_PP] + [_I32] * 6 + [_PF64] + [_I32] * 3 + [_I64] * 2 + [_VP], _I32),
     "wc_graph_create": ([_PP], _I32),
     "wc_graph_add_child": ([_VP, _PP, _VP], _I32),
     "wc_graph_add_lm_loop": ([_VP, _PP, _VP, _VP, _VP, _VP, _I32], _I32),

@@ -8,23 +8,25 @@ temporal clusters of candidate nodes and their time order.
 ``odometry/surfel.extract_surfels`` runs :func:`extract` on CUDA tensors and
 :func:`extract_plain` on CPU tensors.
 
-:func:`extract` is two launches of ``csrc/surfel_extract.cu`` around the
-three level sorts (``torch.sort`` of the packed keys, stable: the one library
-call on its path): the keys of every level, then one cooperative launch for
-the rest (see the source's header for its phases). It makes no host read,
-takes its workspaces from torch's allocator, and sums in a fixed order, so
-a CUDA graph of it replays its eager run bit for bit. What bounds it is
-latency (ten dependent phases, the gathers through the sorts'
-permutations, the eigh3 chains), not its few MB of traffic. It sums the
-moments as :func:`extract_plain` does (``dfsum.df_prefix`` and
+:func:`extract` is one cooperative launch of ``csrc/surfel_extract.cu``
+(see the source's header for its phases): the voxel keys of every level, a
+stable LSD radix sort of its own of the three levels (the keys compressed
+to the bits their ranges span, as many passes of DIGIT_BITS as the widest
+level needs, worked out on the device), then the rest. It makes no library
+call and no host read, takes its workspaces from torch's allocator, and
+sums in a fixed order, so a CUDA graph of it replays its eager run bit for
+bit. What bounds it is latency (~20 dependent phases, the gathers through
+the sort's permutation, the eigh3 chains), not its few MB of traffic. It
+sums the moments as :func:`extract_plain` does (``dfsum.df_prefix`` and
 ``df_range_sum``: the blocked prefix, the block totals' double-float scan,
 in their order of operations), so on the card they come out bit-equal to
 the plain version's; a more accurate sum took the float64 sweep off the
 JAX package's float64 record 22 sweeps early. eigh3 takes acos, cos, sin
 and atan2 from the CUDA math library: a normal or a std may differ from
-the plain version's in the last bits. Keys are
-compared packed (``hi 2^31 + lo``), which equals the pair comparison for
-cells within voxel.split_keys' range (|cell| < 2^19 on each axis).
+the plain version's in the last bits. Its sort orders a level's points as
+``torch.sort(stable=True)`` of the plain version's packed keys
+(``hi 2^31 + lo``) for cells within voxel.split_keys' range (|cell| < 2^19
+on each axis), where the packed comparison is the cells' lexicographic one.
 
 :func:`extract_plain` is the PyTorch version. Its multi-operand
 ``lax.sort`` calls of the JAX version become a stable argsort of one key
@@ -46,15 +48,22 @@ from wildcat_slam_tpu_torch.ops import _build, voxel
 from wildcat_slam_tpu_torch.ops.dfsum import df_prefix, df_range_sum
 from wildcat_slam_tpu_torch.ops.eigh3 import eigh3
 
-LAUNCHES = 0  # K7 launches by extract (two a call; not by extract_plain)
+LAUNCHES = 0  # K7 launches by extract (one a call; not by extract_plain)
 
 # csrc/surfel_extract.cu: blocks of THREADS threads; the scans over the
 # sorted points and over the candidates go by tiles of TILE entries (four a
-# thread); the moments' blocked prefix (ops/dfsum.df_prefix's) by blocks of
-# at most BLOCK points, CHANNELS values a point. CAND values a surfel
-# candidate (t, center 3, cov 6, norm 3, std).
+# thread); the sort by chunks of the points (TILE or more, at most
+# MAX_CHUNKS a level), by digits of DIGIT_BITS bits, its keys the three
+# FIELD_BITS-bit cell fields less their minima and an invalid point's top
+# value (at most KEY_BITS bits); the moments' blocked prefix
+# (ops/dfsum.df_prefix's) by blocks of at most BLOCK points, CHANNELS values
+# a point. CAND values a surfel candidate (t, center 3, cov 6, norm 3, std).
 THREADS = 256
 TILE = 1024
+MAX_CHUNKS = 256
+DIGIT_BITS = 8
+FIELD_BITS = 20
+KEY_BITS = 3 * FIELD_BITS + 1
 BLOCK = 128
 CHANNELS = 11
 CAND = 14
@@ -72,10 +81,17 @@ class Plan(NamedTuple):
     tiles_p: int   # tiles over a level's points
     tiles_v: int   # tiles over the L nc candidates
     ncap: int      # surfels out: min(cap, L nc)
-    ints: int      # int32 workspace: per point the segment and cluster-start flags and the
-                   # parents' ids; per slot its start, flags, candidacy; per cluster its start;
-                   # the tiles' counts; the candidates' validity, the valid ones' list and
-                   # its runs' offsets
+    chunk: int     # points a chunk of the sort: TILE, or more for at most MAX_CHUNKS a level
+    chunks: int    # chunks a level
+    passes: int    # the sort's passes for the widest key (KEY_BITS): the ping-pong does not
+                   # grow with them
+    ints: int      # int32 workspace: per (level, chunk) its digits' counts; per point and
+                   # level the sort's keys (64 bits: in input order, the ping-pong's other
+                   # side, sorted) and indices (ping-pong, the permutation); per chunk its
+                   # valid count and fields' ranges; per point the segment and cluster-start
+                   # flags and the parents' ids; per slot its start, flags, candidacy; per
+                   # cluster its start; the tiles' counts; the candidates' validity, the
+                   # valid ones' list and its runs' offsets
     values: int    # the channels' in-block prefixes (CHANNELS a point a level), the block
                    # prefixes' high and low words and the scan's second buffer, the candidates'
                    # records (CAND values each), the valid ones' times
@@ -98,10 +114,15 @@ def plan(p: int, v_cap: int, nc: int, cap: int, n_levels: int, itemsize: int) ->
     while block < BLOCK and p % (2 * block) == 0:
         block *= 2
     nb = p // block
-    ints = (3 * lp - p + n_levels * (v_cap + 1) + 2 * n_levels * v_cap + n_levels * (nc + 1)
-            + 2 * n_levels * tiles_p + tiles_v + 2 * lnc + tiles_v + 1 + 2 * n_levels)
+    chunk = -(-p // (MAX_CHUNKS * TILE)) * TILE
+    chunks = -(-p // chunk)
+    sort = n_levels * chunks * 2**DIGIT_BITS + 3 * 2 * lp + 3 * lp + chunks * (1 + 6 * n_levels)
+    ints = (sort + 3 * lp - p + n_levels * (v_cap + 1) + 2 * n_levels * v_cap
+            + n_levels * (nc + 1) + 2 * n_levels * tiles_p + tiles_v + 2 * lnc + tiles_v + 1
+            + 2 * n_levels)
     values = lp * CHANNELS + n_levels * CHANNELS * (4 * nb + 2) + lnc * (CAND + 1)
-    pl = Plan(THREADS, TILE, block, tiles_p, tiles_v, min(cap, lnc), ints, values)
+    pl = Plan(THREADS, TILE, block, tiles_p, tiles_v, min(cap, lnc), chunk, chunks,
+              -(-KEY_BITS // DIGIT_BITS), ints, values)
     if workspace_bytes(pl, itemsize) > MAX_WORKSPACE_BYTES:
         raise ValueError(f"surfel_extract: P={p}, v_cap={v_cap}, nc={nc} need "
                          f"{workspace_bytes(pl, itemsize)} bytes of workspace, more than "
@@ -110,8 +131,8 @@ def plan(p: int, v_cap: int, nc: int, cap: int, n_levels: int, itemsize: int) ->
 
 
 def workspace_bytes(p: Plan, itemsize: int) -> int:
-    """The bytes a call takes from torch's allocator besides its outputs, the
-    keys and the sorts' outputs: the int32 and the values' workspace."""
+    """The bytes a call takes from torch's allocator besides its outputs: the
+    int32 and the values' workspace."""
     return 4 * p.ints + itemsize * p.values
 
 
@@ -136,59 +157,28 @@ def _levels(cfg: WildcatConfig):
     return n_levels, (ctypes.c_double * len(reals))(*reals)
 
 
-def _check(pts: torch.Tensor, valid: torch.Tensor, cfg: WildcatConfig, t=None) -> Plan:
+def _check(pts: torch.Tensor, t: torch.Tensor, valid: torch.Tensor, cfg: WildcatConfig) -> Plan:
     """K7's plan for these inputs, after the checks that need no host read."""
     dtype, dev, p = pts.dtype, pts.device, pts.shape[0]
     if dev.type != "cuda" or pts.dim() != 2 or pts.shape[1] != 3:
         raise ValueError(f"surfel_extract: needs pts (P, 3) on a CUDA card, got "
                          f"{tuple(pts.shape)} on {dev}")
     if valid.shape != (p,) or valid.dtype != torch.bool or valid.device != dev or (
-            t is not None and (t.shape != (p,) or t.dtype != dtype or t.device != dev)):
+            t.shape != (p,) or t.dtype != dtype or t.device != dev):
         raise ValueError(f"surfel_extract: needs t ({p},) {dtype} and valid ({p},) bool on {dev}, "
-                         f"got valid {tuple(valid.shape)} {valid.dtype} on {valid.device}"
-                         + ("" if t is None else f", t {tuple(t.shape)} {t.dtype} on {t.device}"))
+                         f"got valid {tuple(valid.shape)} {valid.dtype} on {valid.device}, "
+                         f"t {tuple(t.shape)} {t.dtype} on {t.device}")
     return plan(p, cfg.max_voxels_per_sweep, cfg.max_leaves_per_sweep, cfg.max_surfels_per_sweep,
                 cfg.max_voxel_depth + 1, _itemsize(dtype))
-
-
-def _launch(mode: int, tensors: list, pl: Plan, cfg: WildcatConfig) -> None:
-    global LAUNCHES
-    pts = tensors[0]
-    n_levels, reals = _levels(cfg)
-    ptrs = (ctypes.c_void_p * len(tensors))(*(x.data_ptr() for x in tensors))
-    lib = _build.library()
-    with torch.cuda.device(pts.device):  # the C entry launches on the current card
-        err = lib.wc_surfel_extract(mode, ptrs, len(tensors), pts.shape[0],
-                                    cfg.max_voxels_per_sweep, cfg.max_leaves_per_sweep,
-                                    cfg.max_surfels_per_sweep, n_levels, reals,
-                                    pts.element_size(), pl.threads, pl.tile, pl.ints, pl.values,
-                                    torch.cuda.current_stream(pts.device).cuda_stream)
-    _build.check(err, "wc_surfel_extract")
-    LAUNCHES += 1
-
-
-def level_keys(pts: torch.Tensor, valid: torch.Tensor, cfg: WildcatConfig) -> torch.Tensor:
-    """(L, P) int64: every level's packed voxel key of every point (the
-    invalid points' pinned), by K7's first launch."""
-    return _keys(pts.contiguous(), valid.contiguous(), cfg, _check(pts, valid, cfg))
-
-
-def _keys(pts: torch.Tensor, valid: torch.Tensor, cfg: WildcatConfig, pl: Plan) -> torch.Tensor:
-    keys = torch.empty((cfg.max_voxel_depth + 1, pts.shape[0]), dtype=torch.int64,
-                       device=pts.device)
-    _launch(0, [pts, valid, keys], pl, cfg)
-    return keys
 
 
 def extract(pts: torch.Tensor, t: torch.Tensor, valid: torch.Tensor, cfg: WildcatConfig) -> dict:
     """:func:`extract_plain`'s outputs by K7, on CUDA tensors: pts (P, 3), t
     (P,) of pts' dtype, valid (P,) bool, all on one card."""
-    pl = _check(pts, valid, cfg, t)
+    global LAUNCHES
+    pl = _check(pts, t, valid, cfg)
     dtype, dev = pts.dtype, pts.device
     pts, t, valid = pts.contiguous(), t.contiguous(), valid.contiguous()
-    keys = _keys(pts, valid, cfg, pl)
-    # the level sorts: stable, so equal keys keep input order
-    level_sorts = [torch.sort(k, stable=True) for k in keys]
     iwork = torch.empty((pl.ints,), dtype=torch.int32, device=dev)
     vwork = torch.empty((pl.values,), dtype=dtype, device=dev)
     n = pl.ncap
@@ -200,10 +190,17 @@ def extract(pts: torch.Tensor, t: torch.Tensor, valid: torch.Tensor, cfg: Wildca
                std=torch.empty((n,), dtype=dtype, device=dev),
                valid=torch.empty((n,), dtype=torch.bool, device=dev),
                n_dropped=torch.empty((), dtype=torch.int64, device=dev))
-    _launch(1, [pts, t, *(s.values for s in level_sorts),
-                *(s.indices for s in level_sorts), iwork, vwork, out["t"], out["center"],
-                out["cov"], out["norm"], out["resolution"], out["std"], out["valid"],
-                out["n_dropped"]], pl, cfg)
+    tensors = [pts, t, valid, iwork, vwork, *out.values()]
+    n_levels, reals = _levels(cfg)
+    ptrs = (ctypes.c_void_p * len(tensors))(*(x.data_ptr() for x in tensors))
+    lib = _build.library()
+    with torch.cuda.device(dev):  # the C entry launches on the current card
+        err = lib.wc_surfel_extract(ptrs, len(tensors), pts.shape[0], cfg.max_voxels_per_sweep,
+                                    cfg.max_leaves_per_sweep, cfg.max_surfels_per_sweep, n_levels,
+                                    reals, pts.element_size(), pl.threads, pl.tile, pl.ints,
+                                    pl.values, torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "wc_surfel_extract")
+    LAUNCHES += 1
     return out
 
 
